@@ -1,125 +1,162 @@
-"""Headline benchmark: per-chip GInteractions/s at N=1M (BASELINE.json metric).
+"""Benchmarks of the force path on a CUDA GPU.
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}.
-vs_baseline is measured against the reference design's only absolute rate —
-3.0 GInteractions/s (12 interactions/cycle at a 250 MHz fabric clock,
-BASELINE.md row "Hypothetical absolute rate").
+    python bench.py             # headline: interactions/s at N=1M, one JSON line
+    python bench.py --compare   # Pallas kernel vs XLA's plain version, end to end
+    python bench.py --sweep N   # block-size sweep of the Pallas kernels at N
 
-Extra context goes to stderr. Override knobs via env:
-  NBODY_BENCH_N (default 1048576), NBODY_BENCH_REPS, NBODY_BENCH_BACKEND.
+The headline line is {"metric", "value", "unit", "vs_baseline"}; vs_baseline
+is against the reference design's only absolute rate, 3.0 GInteractions/s
+(12 interactions/cycle at a 250 MHz fabric clock, BASELINE.md row
+"Hypothetical absolute rate"). Every line names the card and its power
+limit; a run that finds no GPU fails.
 """
 
+import argparse
 import json
-import os
 import sys
+import time
 
 import jax
+import jax.numpy as jnp
+import numpy as np
 
 BASELINE_GIPS = 3.0  # reference FPGA @250 MHz, 12 interactions/cycle
 
-#: North-star comparison (BASELINE.md "The CUDA-nbody number"): the one
-#: published CUDA-nbody absolute rate (GPU Gems 3 ch. 31, GeForce 8800 GTX,
-#: ">200 GFLOPS" / 20 flops-per-pair) and a peak-scaled V100-class estimate
-#: (15.7 TF fp32 x ~0.55 sample efficiency / 20).
-CUDA_NBODY_PUBLISHED_GIPS = 10.0
-CUDA_NBODY_V100_EST_GIPS = 430.0
+
+def _card():
+    from chip_smoke import card_line
+
+    dev = jax.devices()[0]
+    return {"card": card_line(), "device_kind": dev.device_kind,
+            "jax": jax.__version__}
+
+
+def _timed(fn, *args, reps=3):
+    """(first call seconds incl. compile, median warm seconds)."""
+    t0 = time.perf_counter()
+    jax.block_until_ready(fn(*args))
+    first = time.perf_counter() - t0
+    warm = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        jax.block_until_ready(fn(*args))
+        warm.append(time.perf_counter() - t0)
+    return first, float(np.median(warm))
+
+
+def headline(n: int, steps: int) -> None:
+    from mini_nbody_tpu import SimConfig, init, simulate
+    from mini_nbody_tpu.utils.harness import Throughput
+
+    cfg = SimConfig(n=n, dt=0.01, steps=steps)
+    state = init.uniform_random(jax.random.key(0), n)
+    first, sec = _timed(lambda s: simulate(cfg, s).pos, state, reps=2)
+    t = Throughput(n=n, steps=steps, seconds=sec)
+    print(json.dumps({**_card(), "backend": cfg.resolve_backend(),
+                      "first_call_s": first, **t.report()}), file=sys.stderr)
+    print(json.dumps({
+        "metric": f"per-device interactions/s, N={n}, fp32 "
+                  f"({cfg.resolve_backend()} backend)",
+        "value": t.ginteractions_per_s_per_device,
+        "unit": "GInteractions/s",
+        "vs_baseline": t.ginteractions_per_s_per_device / BASELINE_GIPS,
+    }))
+
+
+def compare(sizes, steps_by_n, backends) -> None:
+    """End-to-end simulate and rollout-gradient times, per backend."""
+    import dataclasses
+
+    from mini_nbody_tpu import SimConfig, init, simulate
+    from mini_nbody_tpu.sim import init_carry, make_rollout_fn
+
+    card = _card()
+    for n in sizes:
+        steps = steps_by_n[n]
+        s = init.uniform_random(jax.random.key(0), n)
+        for be in backends:
+            cfg = SimConfig(n=n, dt=0.01, steps=steps, backend=be)
+            first, sec = _timed(lambda st: simulate(cfg, st).pos, s, reps=2)
+            print(json.dumps({**card, "what": "simulate", "n": n,
+                              "steps": steps, "backend": be,
+                              "first_call_s": first, "window_s": sec,
+                              "step_s": sec / steps,
+                              "ginteractions_per_s":
+                                  float(n) * n * steps / sec / 1e9}),
+                  flush=True)
+        for be in backends:
+            cfg = SimConfig(n=n, dt=1e-3, softening=1e-2, backend=be,
+                            integrator="leapfrog")
+            carry = init_carry(cfg, s)
+            roll = make_rollout_fn(cfg, steps, remat="none")
+
+            @jax.jit
+            def grad(p):
+                def loss(p):
+                    out, _ = roll((dataclasses.replace(carry[0], pos=p),
+                                   carry[1]))
+                    return jnp.sum(out.pos ** 2)
+
+                return jax.grad(loss)(p)
+
+            first, sec = _timed(grad, s.pos, reps=2)
+            print(json.dumps({**card, "what": "rollout_grad", "n": n,
+                              "steps": steps, "backend": be,
+                              "first_call_s": first, "window_s": sec,
+                              "step_s": sec / steps}), flush=True)
+
+
+def sweep(n: int) -> None:
+    """Time the forward and VJP kernels over block sizes at N."""
+    from mini_nbody_tpu import init
+    from mini_nbody_tpu.ops.pallas_force import body_force_pallas, vjp_pallas
+
+    card = _card()
+    s = init.plummer(jax.random.key(0), n)
+    g = jax.random.normal(jax.random.key(1), (n, 3), jnp.float32)
+    for ti, tj, warps, stages in [
+            (16, 64, 4, 1), (32, 32, 4, 1), (64, 16, 4, 1), (32, 64, 8, 1),
+            (32, 64, 4, 1), (64, 32, 4, 1), (16, 64, 2, 1), (32, 32, 2, 1),
+            (64, 64, 8, 1), (16, 128, 4, 1), (128, 16, 4, 1),
+            (32, 32, 1, 1), (32, 64, 2, 1), (64, 32, 2, 1),
+            (32, 64, 4, 2), (64, 32, 4, 2)]:
+        kw = dict(tile_i=ti, tile_j=tj, num_warps=warps, num_stages=stages)
+        row = {**card, "n": n, **kw}
+        try:
+            _, sec = _timed(lambda p: body_force_pallas(
+                p, p, s.mass, softening=1e-2, **kw), s.pos)
+            row["force_s"] = sec
+            row["force_ginter_s"] = float(n) * n / sec / 1e9
+            _, sec = _timed(lambda p: vjp_pallas(
+                p, g, s.mass, p, g, s.mass, softening=1e-2, **kw), s.pos)
+            row["vjp_s"] = sec
+        except Exception as e:  # a block the compiler refuses is a result
+            row["error"] = f"{type(e).__name__}: {str(e)[:200]}"
+        print(json.dumps(row), flush=True)
 
 
 def main():
-    n = int(os.environ.get("NBODY_BENCH_N", 1 << 20))
-    reps = int(os.environ.get("NBODY_BENCH_REPS", 2))
-    # Default headline backend: the symmetric MXU hybrid. BASELINE.json's
-    # north star names "fp32 or bf16-pairs/fp32-accumulate" kernels with the
-    # energy-drift gate (<=1e-5 @1k steps) as the accuracy criterion;
-    # sym_mxu passes the official config-3 gate at 6.3e-8 (RESULTS.md) and
-    # sustains ~473 GInter/s at N=1M (coincident='auto' maskless blocks)
-    # vs 343 for the fp32-exact `sym`
-    # (set NBODY_BENCH_BACKEND=sym to bench the fp32 headline instead).
-    backend = os.environ.get("NBODY_BENCH_BACKEND", "sym_mxu")
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n", type=int, default=1 << 20)
+    ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--compare", action="store_true")
+    ap.add_argument("--sweep", type=int, default=0, metavar="N")
+    ap.add_argument("--sizes", default="65536,1048576")
+    ap.add_argument("--backends", default="pallas,jnp")
+    args = ap.parse_args()
+    if jax.devices()[0].platform != "gpu":
+        sys.exit(f"no GPU: JAX found {jax.devices()[0].platform!r}")
+    from mini_nbody_tpu.utils.cache import setup_compile_cache
 
-    from mini_nbody_tpu import SimConfig, init
-    from mini_nbody_tpu.sim import make_step_fn
-    from mini_nbody_tpu.utils.harness import (
-        Throughput, roofline_path, time_step_fn)
-
-    cfg = SimConfig(
-        n=n, dt=0.01, backend=backend, integrator="euler",
-        tile_i=512, tile_j=2048,
-    )
-    state = init.uniform_random(jax.random.key(0), n)
-    acc = jax.numpy.zeros_like(state.pos)
-    step = make_step_fn(cfg)
-
-    sec = time_step_fn(step, (state, acc), n=n, reps=reps)
-    t = Throughput(n=n, steps=1, seconds=sec, n_devices=1)
-
-    eff = cfg.effective_backend()
-    # Label derived from the backend actually run (VERDICT r1 weak #2):
-    # sym/pallas are fp32-exact; mxu/sym_mxu accumulate through bf16 MXU
-    # passes (fp32 accumulator, exact fp32 distances).
-    precision = {
-        "sym": "fp32", "pallas": "fp32", "jnp": "fp32",
-        "mxu": "bf16-accumulate", "sym_mxu": "bf16-accumulate",
-    }.get(eff, "fp32")
-    kernel = {
-        "sym": "symmetric kernel", "sym_mxu": "symmetric MXU hybrid",
-        "pallas": "direct kernel", "mxu": "MXU hybrid", "jnp": "jnp fallback",
-    }.get(eff, eff)
-    print(
-        json.dumps(
-            {
-                "device": jax.devices()[0].device_kind,
-                "backend": eff,
-                **t.report(path=roofline_path(cfg)),
-            }
-        ),
-        file=sys.stderr,
-    )
-    if backend == "auto" and eff == "sym":
-        # Context line (stderr, not the contract line): the bf16-accumulate
-        # record kernel at the same N. The headline metric stays fp32-exact
-        # for round-over-round and CUDA-nbody comparability.
-        cfg2 = cfg.replace(backend="sym_mxu")
-        sec2 = time_step_fn(make_step_fn(cfg2), (state, acc), n=n, reps=reps)
-        t2 = Throughput(n=n, steps=1, seconds=sec2, n_devices=1)
-        print(
-            json.dumps(
-                {
-                    "context": "bf16-accumulate record (symmetric MXU "
-                               "hybrid; drift gate 6.3e-8 vs 1e-5)",
-                    "backend": "sym_mxu",
-                    **t2.report(path="sym_mxu"),
-                }
-            ),
-            file=sys.stderr,
-        )
-    gips = t.ginteractions_per_s_per_device
-    print(
-        json.dumps(
-            {
-                "context": "north-star vs CUDA nbody (BASELINE.md table)",
-                "cuda_published_8800gtx_gips": CUDA_NBODY_PUBLISHED_GIPS,
-                "margin_vs_published_x": round(
-                    gips / CUDA_NBODY_PUBLISHED_GIPS, 1),
-                "cuda_v100_class_estimate_gips": CUDA_NBODY_V100_EST_GIPS,
-                "margin_vs_v100_class_x": round(
-                    gips / CUDA_NBODY_V100_EST_GIPS, 2),
-                "source": "GPU Gems 3 ch.31 (Nyland, Harris, Prins 2007)",
-            }
-        ),
-        file=sys.stderr,
-    )
-    print(
-        json.dumps(
-            {
-                "metric": (f"per-chip interactions/s, N={n}, "
-                           f"{precision} ({kernel})"),
-                "value": round(t.ginteractions_per_s_per_device, 3),
-                "unit": "GInteractions/s",
-                "vs_baseline": round(t.ginteractions_per_s_per_device / BASELINE_GIPS, 2),
-            }
-        )
-    )
+    setup_compile_cache()
+    if args.sweep:
+        sweep(args.sweep)
+    elif args.compare:
+        sizes = [int(x) for x in args.sizes.split(",")]
+        steps = {n: max(1, min(20, int(1e12 // (n * n)))) for n in sizes}
+        compare(sizes, steps, args.backends.split(","))
+    else:
+        headline(args.n, args.steps)
 
 
 if __name__ == "__main__":

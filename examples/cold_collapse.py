@@ -40,7 +40,7 @@ def main():
                     integrator="leapfrog", use_masses=True)
     state = init.cold_sphere(jax.random.key(0), args.n)
     e0 = float(diag.total_energy(state, soft))
-    print(json.dumps({"n": args.n, "e0": e0, "backend": cfg.effective_backend()}))
+    print(json.dumps({"n": args.n, "e0": e0, "backend": cfg.resolve_backend()}))
 
     step = jax.jit(make_step_fn(cfg))
     carry = init_carry(cfg, state)

@@ -4,7 +4,7 @@ Generates a short "observed" trajectory with hidden true masses, then
 recovers them by gradient descent on the trajectory mismatch — gradients
 flow to the masses through every step via the analytic mass cotangent
 (dF_j/dm_k = w d_jk; ops/autodiff.make_differentiable_force(mass_grad=True),
-Pallas symmetric backward kernel on TPU). A capability the fixed-function
+the Pallas backward kernel on a GPU). A capability the fixed-function
 reference hardware cannot express at all.
 
 Run: python examples/infer_masses.py [--n 64] [--steps 20] [--iters 200]

@@ -1,13 +1,14 @@
 """Two-process jax.distributed run on localhost CPUs.
 
 The reference is strictly single-chip (SURVEY.md §2 item 6); BASELINE
-config 5's multi-host axis cannot run on real hardware here (one TPU chip),
-so this demo exercises the REAL multi-process runtime path — coordinator
-handshake, global device list, cross-process collectives — with the CPU
+config 5's multi-host axis needs several hosts, so this demo exercises the
+REAL multi-process runtime path — coordinator handshake, global device
+list, cross-process collectives — with the CPU
 backend and gloo collectives on localhost:
 
   * each worker process calls parallel.multihost.initialize() (the same
-    wrapper a TPU pod run would use, DCN replaced by localhost TCP),
+    wrapper a multi-host GPU run would use, the network replaced by
+    localhost TCP),
   * builds the global 1-D body mesh spanning both processes' devices
     (parallel.multihost.global_mesh),
   * runs a sharded trajectory (parallel.sharded.make_sharded_step_fn with

@@ -3,7 +3,7 @@
 Optimizes the initial velocity of a probe body so that, after `steps` of
 softened-gravity evolution inside a Plummer cluster, it arrives at a target
 point — gradients flow through the whole trajectory via the analytic force
-VJP (Pallas backward kernel on TPU), with the sqrt-checkpointed rollout
+VJP (the Pallas backward kernel on a GPU), with the sqrt-checkpointed rollout
 (sim.make_rollout_fn) so long trajectories don't store every step's
 residuals.
 

@@ -2,19 +2,15 @@
 
 Run: python examples/parameter_sweep.py [--b 32] [--n 1024] [--steps 200]
 
-The TPU-native answer to "re-run the simulation across a knob": B copies
+The batched answer to "re-run the simulation across a knob": B copies
 of a Plummer sphere, each with a different velocity-scale factor q (the
 virial knob: q=1 is equilibrium, q<1 collapses, q>1 expands), integrated
-together by sim.simulate_ensemble — each system is one chunk of the
-symmetric traversal, so the device sees one (B*c)-body program instead of
-B launches (the reference FPGA could serve exactly one RAM-load at a
-time: src/top_level.vhd:180-186). Per-system energy drift and the
-half-mass radius trend are reported per system; total wall time is the
-time of ONE batched trajectory.
-
-On a chip, B=32 x N=1024 x 200 leapfrog steps is a fraction of a second;
-the same sweep as 32 sequential runs pays 32x the dispatch/compile
-latency (and the per-system rate: benchmarks/RESULTS.md round-3f/g).
+together by sim.simulate_ensemble — the force is jax.vmap of the
+single-system force (a batch grid axis on the Pallas kernel), so the device
+sees one program instead of B launches (the reference FPGA could serve
+exactly one RAM-load at a time: src/top_level.vhd:180-186). Per-system
+energy drift and the half-mass radius trend are reported per system; total
+wall time is the time of ONE batched trajectory.
 """
 
 import argparse
@@ -58,7 +54,7 @@ def main():
     soft = 1e-3
     cfg = SimConfig(n=args.n, dt=args.dt, steps=args.steps, softening=soft,
                     integrator="leapfrog", use_masses=True,
-                    backend="sym_mxu")
+                    backend="auto")
 
     base = init.plummer(jax.random.key(0), args.n)
     q = jnp.linspace(0.2, 1.6, args.b)  # velocity-scale sweep
@@ -72,7 +68,7 @@ def main():
     r0 = half_mass_radius(st.pos, st.mass)
     t0 = time.perf_counter()
     out = simulate_ensemble(cfg, st)
-    np.asarray(out.pos[0, 0])  # force the device->host sync
+    jax.block_until_ready(out.pos)
     wall = time.perf_counter() - t0
     e1 = diag.total_energy_ensemble(out, soft)
     r1 = half_mass_radius(out.pos, out.mass)
@@ -80,7 +76,7 @@ def main():
     drift = np.abs((np.asarray(e1) - np.asarray(e0)) / np.asarray(e0))
     print(json.dumps({
         "B": args.b, "n": args.n, "steps": args.steps,
-        "backend": cfg.effective_backend(),
+        "backend": cfg.resolve_backend(),
         "wall_s": round(wall, 3),
         "pairs_per_s": round(args.b * args.steps * args.n ** 2 / 2
                              / wall / 1e9, 2),

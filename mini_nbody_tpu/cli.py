@@ -1,6 +1,6 @@
 """Command-line harness.
 
-The TPU-native replacement for the reference system's host driver (the
+The replacement for the reference system's host driver (the
 unmounted ARM PS software that wrote bodies into the shared RAM, set the
 begin bit, polled for completion and read the kilocycle counter,
 ``src/top_level.vhd:184-186,255-263``; SURVEY.md §3.1):
@@ -29,50 +29,23 @@ def _add_common(p):
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--softening", type=float, default=1e-9)
     p.add_argument("--integrator", choices=["euler", "leapfrog", "rk4", "yoshida4"], default="euler")
-    p.add_argument("--backend",
-                   choices=["auto", "jnp", "pallas", "mxu", "sym", "sym_mxu"],
-                   default="auto")
-    p.add_argument("--pair-dtype", choices=["float32", "bfloat16"],
-                   default="float32")
-    p.add_argument("--tile-i", type=int, default=512)
-    p.add_argument("--tile-j", type=int, default=2048)
-    p.add_argument("--sym-tile", type=int, default=None,
-                   help="tile override for the symmetric kernels "
-                        "(default: measured-best kernel default)")
-    p.add_argument("--sym-chunk", type=int, default=None,
-                   help="chunk override for the symmetric kernels")
-    p.add_argument("--autotune", action="store_true",
-                   help="apply the autotune cache's best tiling for this "
-                        "device/backend/size (measuring it first if absent; "
-                        "see the `tune` subcommand)")
+    p.add_argument("--backend", choices=["auto", "jnp", "pallas"],
+                   default="auto",
+                   help="force path: jnp (XLA), pallas (Pallas-Triton "
+                        "kernel, CUDA GPU only), auto (pallas on a GPU, "
+                        "jnp elsewhere)")
+    p.add_argument("--tile-i", type=int, default=None,
+                   help="receiver block of the pallas kernel (power of 2)")
+    p.add_argument("--tile-j", type=int, default=None,
+                   help="source tile of the pallas kernel (power of 2)")
     p.add_argument("--init", choices=["uniform", "plummer", "cold_sphere", "two_cluster"],
                    default="uniform")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--devices", default="0",
                    help="shard bodies over this many devices (0 = single); "
-                        "'RxC' (e.g. 2x4) selects a 2-D mesh for --comm grid")
+                        "'RxC' (e.g. 2x2) selects a 2-D mesh for --comm grid")
     p.add_argument("--comm", choices=["all_gather", "ring", "ring_sym", "grid"],
                    default="ring")
-    p.add_argument("--fused-integrate", action="store_true",
-                   help="fold the Euler integrate into the direct kernel's "
-                        "epilogue (requires --backend pallas, euler, "
-                        "single chip; measured +0.7%%)")
-    p.add_argument("--resident", choices=["auto", "on", "off"],
-                   default="auto",
-                   help="whole-trajectory resident kernel: auto routes "
-                        "small N on TPU; on forces it (N <= VMEM cap); "
-                        "off pins the streamed per-step path")
-    p.add_argument("--split-w", action="store_true",
-                   help="sym_mxu accuracy mode: compensate the bf16 pair-"
-                        "weight rounding with a second lo-pass matmul "
-                        "(~1e-5-class error at ~306 GInter/s)")
-    p.add_argument("--coincident", choices=["auto", "masked", "fast"],
-                   default="auto",
-                   help="sym_mxu d2==0 mask policy: auto = exact duplicate "
-                        "scan picks the maskless kernels when safe (+13%% "
-                        "measured, bitwise-identical results); masked = "
-                        "always mask; fast = never (caller guarantees "
-                        "distinct positions)")
 
 
 def _parse_mesh(devices):
@@ -85,30 +58,16 @@ def _parse_mesh(devices):
 def _build(args):
     from mini_nbody_tpu.utils.config import SimConfig
 
-    cfg = SimConfig(
+    return SimConfig(
         n=args.n, dt=args.dt, steps=args.steps, softening=args.softening,
         integrator=args.integrator, backend=args.backend,
-        pair_dtype=args.pair_dtype, tile_i=args.tile_i, tile_j=args.tile_j,
-        sym_tile=getattr(args, "sym_tile", None),
-        sym_chunk=getattr(args, "sym_chunk", None),
+        tile_i=args.tile_i, tile_j=args.tile_j,
         comm=args.comm,
         mesh_shape=_parse_mesh(args.devices),
-        fused_integrate=args.fused_integrate,
-        split_w=args.split_w,
-        coincident=getattr(args, "coincident", "auto"),
-        resident={"auto": None, "on": True, "off": False}[
-            getattr(args, "resident", "auto")],
         # uniform init has unit masses (reference semantics -> fast path);
         # plummer/cold_sphere carry per-body masses.
         use_masses=args.init != "uniform",
     )
-    if getattr(args, "autotune", False) and not getattr(args, "ensemble", 0):
-        # Ensembles have their own (B, N)-keyed family; cmd_run applies
-        # tune_ensemble AFTER the 'auto' -> sym_mxu backend upgrade.
-        from mini_nbody_tpu.utils import autotune
-
-        cfg = autotune.tune(cfg)
-    return cfg
 
 
 def _state(args, cfg):
@@ -128,22 +87,13 @@ def cmd_run(args):
     if getattr(args, "ensemble", 0):
         # BEFORE the single-system state build (no wasted N-body init) and
         # with explicit conflicts: an ensemble neither resumes a
-        # single-system checkpoint nor writes one (code-review r3d — the
-        # old flow silently discarded a --resume-loaded state).
+        # single-system checkpoint nor writes one, so a --resume-loaded
+        # state is refused rather than silently discarded.
         for flag in ("resume", "save"):
             if getattr(args, flag, None):
                 raise SystemExit(
                     f"--ensemble does not support --{flag} (ensembles are "
                     "seed-initialized, single-run batches)")
-        if args.backend == "auto":
-            # the advertised default class; 'auto' would resolve to the
-            # fp32 'sym' which simulate_ensemble also accepts but is not
-            # what the flag's help promises
-            cfg = cfg.replace(backend="sym_mxu")
-        if getattr(args, "autotune", False):
-            from mini_nbody_tpu.utils import autotune
-
-            cfg = autotune.tune_ensemble(cfg, args.ensemble)
         from mini_nbody_tpu.models.state import BodyState
         from mini_nbody_tpu.sim import simulate_ensemble
 
@@ -243,51 +193,11 @@ def cmd_run(args):
 
 def cmd_bench(args):
     import jax
-    import jax.numpy as jnp
-    from mini_nbody_tpu.sim import make_step_fn
+    from mini_nbody_tpu.sim import init_carry, make_step_fn
     from mini_nbody_tpu.utils.harness import Throughput, time_step_fn
 
     cfg = _build(args)
     state = _state(args, cfg)
-    from mini_nbody_tpu.sim import (
-        MAX_DEVICE_SECONDS_PER_DISPATCH, _CONSERVATIVE_GINTER_S,
-        _simulate_hostseg)
-
-    per_step = float(cfg.n) ** 2 / (_CONSERVATIVE_GINTER_S * 1e9)
-    if not cfg.mesh_shape and per_step > MAX_DEVICE_SECONDS_PER_DISPATCH:
-        # One force pass exceeds the watchdog: time the host-stepped path
-        # (warm-up step first so compiles are excluded), like simulate uses.
-        _simulate_hostseg(cfg, state, 1)  # warmup/compile
-        t0 = time.perf_counter()
-        out = _simulate_hostseg(cfg, state, 1)
-        np.asarray(jax.device_get(out.pos[0, 0]))
-        sec = time.perf_counter() - t0
-        from mini_nbody_tpu.utils.harness import Throughput, roofline_path
-
-        t = Throughput(n=cfg.n, steps=1, seconds=sec, n_devices=1)
-        print(json.dumps({
-            "device": jax.devices()[0].device_kind,
-            "backend": "sym (host-segmented)",
-            "pair_dtype": cfg.pair_dtype,
-            **t.report(path="sym" if not cfg.use_masses else "sym_mass"),
-        }))
-        return
-    if cfg.resident and not cfg.mesh_shape:
-        # Whole-trajectory resident kernel: per-step time can't be expressed
-        # as a step-fn (the fusion IS multi-step), so time full resident
-        # runs the way the autotuner does.
-        from mini_nbody_tpu.utils.autotune import _default_measure
-        from mini_nbody_tpu.utils.harness import roofline_path
-
-        sec = _default_measure(cfg, reps=args.reps)
-        t = Throughput(n=cfg.n, steps=1, seconds=sec, n_devices=1)
-        print(json.dumps({
-            "device": jax.devices()[0].device_kind,
-            "backend": f"{cfg.effective_backend()} (resident)",
-            "pair_dtype": cfg.pair_dtype,
-            **t.report(path=roofline_path(cfg)),
-        }))
-        return
     if cfg.mesh_shape:
         from mini_nbody_tpu.parallel import make_mesh, shard_state
         from mini_nbody_tpu.parallel.sharded import (
@@ -299,22 +209,19 @@ def cmd_bench(args):
         state = shard_state(state, mesh, pad_far=not cfg.use_masses)
         step = make_sharded_step_fn(cfg, mesh)
         carry = init_sharded_carry(cfg, mesh, state)
-        import math
-        ndev = math.prod(cfg.mesh_shape)
+        ndev = mesh.devices.size
     else:
         step = make_step_fn(cfg)
-        carry = (state, jnp.zeros_like(state.pos))
+        carry = init_carry(cfg, state)
         ndev = 1
-    sec = time_step_fn(step, carry, n=cfg.n, reps=args.reps)
+    sec = time_step_fn(step, carry, reps=args.reps)
     t = Throughput(n=cfg.n, steps=1, seconds=sec, n_devices=ndev)
-    from mini_nbody_tpu.utils.harness import roofline_path
-
-    eff = cfg.effective_backend(sharded=bool(cfg.mesh_shape))
+    dev = jax.devices()[0]
     print(json.dumps({
-        "device": jax.devices()[0].device_kind,
-        "backend": eff,
-        "pair_dtype": cfg.pair_dtype,
-        **t.report(path=roofline_path(cfg, sharded=bool(cfg.mesh_shape))),
+        "platform": dev.platform,
+        "device": dev.device_kind,
+        "backend": cfg.resolve_backend(),
+        **t.report(),
     }))
 
 
@@ -339,7 +246,6 @@ def cmd_shmoo(args):
 
 
 def cmd_check(args):
-    import jax
     from mini_nbody_tpu.ops.force import make_force_fn
     from mini_nbody_tpu.ops import diagnostics as diag
     from mini_nbody_tpu.sim import simulate
@@ -372,39 +278,16 @@ def cmd_check(args):
     ferr = err.max() / scale
     fmed = float(np.median(err) / scale)
 
-    # 2. Conservation over the run.
-    # On TPU the Pallas potential-energy kernel makes the energy gate cheap
-    # at any practical N (~4.5 s at N=1M); the chunked-jnp fallback
-    # elsewhere stays bounded.
-    import jax as _jax
-
-    e_cap = (1 << 21) if _jax.default_backend() == "tpu" else 65536
-    e0 = float(diag.total_energy(state, cfg.softening)) if cfg.n <= e_cap else None
+    # 2. Conservation over the run (chunked-jnp potential; bounded N).
+    e0 = (float(diag.total_energy(state, cfg.softening))
+          if cfg.n <= 1 << 21 else None)
     p0 = np.asarray(diag.momentum(state))
-    # Pin the resolved backend AND the streamed path so the conservation
-    # run exercises the SAME kernel the report names (simulate's small-N
-    # routing would otherwise swap in the resident kernel — same precision
-    # class, but a different kernel than the label).
-    out = simulate(cfg.replace(backend=cfg.effective_backend(),
-                               resident=False), state)
+    out = simulate(cfg, state)
     p1 = np.asarray(diag.momentum(out))
 
-    # bf16-accumulate backends (mxu-bfloat16, sym_mxu) legitimately carry
-    # close-pair error tails (benchmarks/RESULTS.md); their gate is the
-    # median plus a loose tail bound, while fp32-exact backends gate the max
-    # against --force-tol.
-    eff = cfg.effective_backend()
-    bf16_class = cfg.bf16_class()
-    if bf16_class:
-        # Post-compensated-split error classes with margin (RESULTS.md:
-        # median 1.1e-4, max 1.6e-2 at N=65536). A regression reintroducing
-        # the pre-split cancellation tails (p99 ~0.14) must FAIL here.
-        ok = fmed < 5e-4 and ferr < 5e-2
-    else:
-        ok = ferr < args.force_tol
+    ok = ferr < args.force_tol
     report = {
-        "backend": eff,
-        "precision_class": "bf16-accumulate" if bf16_class else "fp32",
+        "backend": cfg.resolve_backend(),
         "force_max_rel_err": float(ferr),
         "force_median_rel_err": fmed,
         "momentum_drift": float(np.abs(p1 - p0).max()),
@@ -417,43 +300,9 @@ def cmd_check(args):
     sys.exit(0 if ok else 1)
 
 
-def cmd_tune(args):
-    from mini_nbody_tpu.utils import autotune
-
-    cfg = _build(args)
-    if getattr(args, "ensemble", 0):
-        if cfg.backend == "auto":
-            cfg = cfg.replace(backend="sym_mxu")  # match run --ensemble
-        best = autotune.tune_ensemble(cfg, args.ensemble, reps=args.reps,
-                                      use_cache=not args.no_cache)
-        print(json.dumps({
-            "backend": cfg.effective_backend(),
-            "n": cfg.n,
-            "ensemble": args.ensemble,
-            "sym_tile": best.sym_tile,
-            "resident": bool(best.resident),
-            "resident_tile": best.resident_tile,
-            "cache": str(autotune.cache_path()),
-        }))
-        return
-    best = autotune.tune(cfg, reps=args.reps, use_cache=not args.no_cache,
-                         backward=args.backward)
-    print(json.dumps({
-        "backend": cfg.effective_backend(),
-        "n": cfg.n,
-        "sym_tile": best.sym_tile,
-        "sym_chunk": best.sym_chunk,
-        "sym_bwd_tile": best.sym_bwd_tile,
-        "resident_tile": best.resident_tile,
-        "tile_i": best.tile_i,
-        "tile_j": best.tile_j,
-        "cache": str(autotune.cache_path()),
-    }))
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        prog="nbody-tpu", description="TPU-native N-body engine"
+        prog="nbody-tpu", description="N-body engine (JAX/XLA/Pallas)"
     )
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -465,10 +314,7 @@ def main(argv=None):
                         "snapshot stride (with --trajectory)")
     p.add_argument("--ensemble", type=int, default=0, metavar="B",
                    help="integrate B INDEPENDENT n-body systems batched in "
-                        "one program (sim.simulate_ensemble; --backend auto "
-                        "upgrades to sym_mxu here, or pass sym for "
-                        "fp32-exact; each system is one chunk of the "
-                        "symmetric traversal)")
+                        "one program (sim.simulate_ensemble)")
     p.add_argument("--trajectory",
                    help="write stacked position snapshots every "
                         "--save-every steps to this npz (works sharded "
@@ -484,7 +330,7 @@ def main(argv=None):
 
     p = sub.add_parser("shmoo", help="scaling sweep over N")
     _add_common(p)
-    # Default sweep runs through the N=1M headline size (VERDICT r1 weak #7).
+    # Default sweep runs through the N=1M headline size.
     p.add_argument("--sizes", default="1024,4096,16384,65536,262144,1048576")
     p.add_argument("--reps", type=int, default=3)
     p.add_argument("--format", choices=["csv", "jsonl"], default="csv")
@@ -496,23 +342,10 @@ def main(argv=None):
     p.add_argument("--force-tol", type=float, default=1e-4)
     p.set_defaults(fn=cmd_check)
 
-    p = sub.add_parser("tune", help="measure + cache the best kernel tiling")
-    _add_common(p)
-    p.add_argument("--reps", type=int, default=2)
-    p.add_argument("--no-cache", action="store_true",
-                   help="re-measure even if a cached result exists")
-    p.add_argument("--backward", action="store_true",
-                   help="also sweep the symmetric backward kernel's tile "
-                        "(sym_bwd_tile; one extra compile per candidate)")
-    p.add_argument("--ensemble", type=int, default=0, metavar="B",
-                   help="tune the B-system batched drivers instead: sweeps "
-                        "the streamed ensemble's sym_tile head to head "
-                        "against the batched-resident kernel, caches the "
-                        "winner keyed by (B, N) buckets; run --ensemble B "
-                        "--autotune consumes it")
-    p.set_defaults(fn=cmd_tune)
-
     args = ap.parse_args(argv)
+    from mini_nbody_tpu.utils.cache import setup_compile_cache
+
+    setup_compile_cache()
     args.fn(args)
 
 

@@ -2,8 +2,8 @@
 
 The reference keeps body state in a shared memory-mapped RAM as 128-bit
 ``x|y|z|pad`` words (AoS; ``src/top_level.vhd:100-117,206-208``), with
-velocities living host-side.  TPU-native design flips this to SoA ``(N, 3)``
-arrays in HBM — the layout XLA/Pallas tiles efficiently — and keeps the full
+velocities living host-side.  This design flips that to SoA ``(N, 3)``
+arrays in device memory — the layout XLA and Pallas tile well — and keeps the full
 state (positions *and* velocities *and* masses) device-resident so the whole
 multi-step trajectory runs as one XLA program with no host round-trips (the
 reference needs a PS<->PL handshake per force pass, ``src/top_level.vhd:180-186``).

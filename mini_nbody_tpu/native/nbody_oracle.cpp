@@ -1,11 +1,11 @@
 // fp64 reference oracle for the softened all-pairs bodyForce, in C++/OpenMP.
 //
 // Role: the golden model the reference hardware never had (its testbenches
-// are value-blind — sim/tb_dxy.vhd:899-923). The TPU kernels are validated
+// are value-blind — sim/tb_dxy.vhd:899-923). The device kernels are validated
 // against this at sizes where a NumPy fp64 oracle is impractically slow
 // (O(N^2) in Python-managed memory).
 //
-// Physics exactly mirrors the reference datapath (and the TPU kernels):
+// Physics exactly mirrors the reference datapath (and the device kernels):
 //   d = p_j - p_i;  r2 = |d|^2 + softening;  w = r2^-1.5 * m_j;  F_i += d*w
 // Self-interaction computed, not skipped (d = 0 => contribution 0), matching
 // src/fxyz.vhd:120-127 / SURVEY.md §0.

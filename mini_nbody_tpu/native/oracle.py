@@ -1,8 +1,10 @@
-"""ctypes binding for the C++/OpenMP fp64 oracle (nbody_oracle.cpp).
+"""fp64 oracles: a ctypes binding for the C++/OpenMP one (nbody_oracle.cpp)
+and its NumPy twins.
 
-Auto-builds the shared library with g++ on first use (cached next to the
-source; rebuilt when the source is newer). Falls back gracefully: callers
-check ``available()`` and use the NumPy fp64 oracle otherwise.
+The native library is built with g++ on first use (cached next to the
+source, which .gitignore lists; rebuilt when the source is newer). Callers
+check ``available()`` and use the NumPy fp64 oracle (``numpy_body_force``,
+``numpy_euler_steps``), which needs no build, otherwise.
 """
 
 from __future__ import annotations
@@ -136,6 +138,37 @@ def euler_steps_oracle(pos, vel, mass=None, dt: float = 0.01, steps: int = 10,
         ctypes.c_double(dt), n, steps,
         scratch.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
     )
+    return p, v
+
+
+def numpy_body_force(pos_i, pos_j, mass_j=None, softening: float = 1e-9,
+                     budget: int = 1 << 24) -> np.ndarray:
+    """fp64 all-pairs forces on pos_i from (pos_j, mass_j) in NumPy, the
+    receivers in row chunks of at most ``budget`` pairs (bounded memory at
+    any N; no build)."""
+    pi = np.asarray(pos_i, np.float64)
+    pj = np.asarray(pos_j, np.float64)
+    m = (np.ones(pj.shape[0]) if mass_j is None
+         else np.asarray(mass_j, np.float64))
+    rows = max(1, budget // max(pj.shape[0], 1))
+    out = np.empty((pi.shape[0], 3), np.float64)
+    for a in range(0, pi.shape[0], rows):
+        d = pj[None, :, :] - pi[a:a + rows, None, :]
+        r2 = np.einsum("ijk,ijk->ij", d, d) + softening
+        w = r2 ** -1.5 * m[None, :]
+        out[a:a + rows] = np.einsum("ijk,ij->ik", d, w)
+    return out
+
+
+def numpy_euler_steps(pos, vel, mass=None, dt: float = 0.01, steps: int = 10,
+                      softening: float = 1e-9):
+    """fp64 semi-implicit Euler (v += dt*F; x += dt*v), fp64 state
+    throughout. Returns (pos, vel) float64 arrays."""
+    p = np.asarray(pos, np.float64).copy()
+    v = np.asarray(vel, np.float64).copy()
+    for _ in range(steps):
+        v += dt * numpy_body_force(p, p, mass, softening)
+        p += dt * v
     return p, v
 
 

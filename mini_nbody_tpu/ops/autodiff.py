@@ -1,147 +1,127 @@
-"""Differentiable force op: analytic VJP over the Pallas force backends.
+"""Differentiable force op: an analytic VJP over any force backend.
 
-The Pallas kernels have no automatic derivative, but softened gravity has a
-clean analytic one. With d_ij = p_j - p_i, s = |d|^2 + eps, w = s^(-3/2),
-u = s^(-5/2), and L = sum_i g_i . F_i:
+Neither the Pallas kernel nor a chunked forward has a useful automatic
+derivative, but softened gravity has a clean analytic one. With
+d = p_s - p_k, s = |d|^2 + eps, w = s^(-3/2), u = s^(-5/2) and L = sum g.F:
 
-  receiver (i = k):  dL/dp_k += sum_j m_j [ -w g_k + 3 u (g_k . d_kj) d_kj ]
-  source   (j = k):  dL/dp_k += m_k sum_i [  w g_i - 3 u (g_i . d_kj(i)) d ]
+  receiver (k receives from s):  dL/dp_k += m_s [ -w g_k + 3 u (g_k . d) d ]
+  source   (k acts on s):        dL/dp_k += m_k [  w g_s - 3 u (g_s . d) d ]
+  mass     (F_s depends on m_k): dL/dm_k += -w (g_s . d)
 
-The self term i = j = k cancels ANALYTICALLY between the two (+-w g_k), but
-NOT in floating point: at the default SOFTENING=1e-9 the self weight
-w = eps^-1.5 ~ 3e13 swamps the fp32 accumulator and the cancellation residue
-is O(ulp(w |g|)) — measured max relative gradient error ~1.0 without a mask.
-So w and u are zeroed on exactly-coincident pairs (d == 0, detected as the
-pre-softening |d|^2 == 0 — see the identical mask in ops/mxu_force.py); the
-self pair's true gradient contribution is identically zero since its force
-term w(|d|^2+eps) d vanishes as a function of p_k.
+The self term i = j = k cancels ANALYTICALLY between the first two
+(+-w g_k), but NOT in floating point: at the default SOFTENING=1e-9 the self
+weight w = eps^-1.5 ~ 3e13 swamps the fp32 accumulator and the cancellation
+residue is O(ulp(w |g|)) — measured max relative gradient error ~1.0 without
+a mask. So w and u are zeroed on exactly-coincident pairs (the pre-softening
+|d|^2 == 0); the self pair's true gradient contribution is identically zero
+since its force term w(|d|^2+eps) d vanishes as a function of p_k.
 
-The VJP is itself a pairwise O(N^2) reduction, evaluated here as chunked jnp
-(XLA-fused, memory O(chunk * N)); ops/vjp_kernel.py is the fast Pallas
-backward.
+One pairwise reduction serves every layout: ``vjp_jnp`` (chunked jnp, what
+XLA compiles) and its kernel twin ``ops.pallas_force.vjp_pallas`` take
+receivers (pos_r, g_r, mass_r) and sources (pos_s, g_s, mass_s) and sum the
+receiver terms, the source terms, or both:
+
+* square self-force: both terms, receivers = sources;
+* a shard against a visiting shard (ring / all_gather backward): both terms;
+* the two sides of a pair block (grid backward): receiver terms for the
+  rows, source terms for the columns.
 
 The reference, being fixed-function hardware, has no notion of
-differentiation — this is TPU/JAX-native capability on top of parity
-(enables e.g. initial-condition optimization and adjoint analyses through
-the simulator).
+differentiation — this is capability on top of parity (initial-condition
+optimization and adjoint analyses through the simulator).
 """
 
 from __future__ import annotations
 
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 
-#: Single-launch bound of the symmetric backward kernels: the (ko, N) VMEM
-#: reaction buffer. Beyond it the ordered j-streaming backwards take over.
-_SYM_BWD_MAX = 131072
+from mini_nbody_tpu.ops.reference import (_diffs, auto_row_chunk,
+                                         map_row_chunks)
+
+#: Rows per chunk are sized so the (rows, Ns, 3) broadcasts of the backward
+#: stay near 192 MB.
+_VJP_BUDGET = 1 << 24
 
 
-def _vjp_pos(pos, g, mass, softening, row_chunk: int | None = None,
-             with_mass_grad: bool = False):
-    """pos_bar for cotangent g of F(pos): square, self-interacting system.
-    with_mass_grad=True also returns mass_bar: dF_j/dm_k = w_jk d_jk exactly
-    (w carries no mass factor), so mass_bar_k = -sum_j w (g_j . d_kj) with
-    the same d, w as the position terms."""
-    n = pos.shape[0]
-    if row_chunk is None:
-        # Cap the (row_chunk, N, 3) broadcast intermediates at ~192 MB — a
-        # fixed 2048 meant ~24 GB at N=1M (ADVICE r1; same auto-sizing as
-        # diagnostics.potential_energy).
-        row_chunk = max(8, min(2048, (1 << 24) // max(n, 1)))
-    soft = jnp.asarray(softening, pos.dtype)
+@partial(jax.jit, static_argnames=("softening", "recv_terms", "src_terms",
+                                   "mass_grad", "row_chunk"))
+def vjp_jnp(pos_r, g_r, mass_r, pos_s, g_s, mass_s, *, softening: float,
+            recv_terms: bool = True, src_terms: bool = True,
+            mass_grad: bool = False, row_chunk: int | None = None):
+    """Pairwise force VJP of receivers pos_r against sources pos_s
+    (module docstring). g_r is needed for the receiver terms, g_s for the
+    source terms and the mass gradient; None masses are unit.
 
-    def block(args):
-        pos_c, g_c, m_c = args
-        d = pos[None, :, :] - pos_c[:, None, :]  # (C, N, 3): d[k, j] = p_j - p_k
-        d2 = jnp.sum(d * d, axis=-1)
-        s = d2 + soft
-        # rsqrt-based powers: s**-p lowers to exp/log on TPU (~1e-3 relative
-        # after the near-cancelling sums below); hardware rsqrt is ~1 ulp.
-        inv = jax.lax.rsqrt(s)
+    Returns pos_bar (Nr, 3), and mass_bar (Nr,) when mass_grad."""
+    dt = pos_r.dtype  # fp32 from the simulator; fp64 in x64 checks
+    nr, ns = pos_r.shape[0], pos_s.shape[0]
+    pos_s = pos_s.astype(dt)
+    m_r = jnp.ones((nr,), dt) if mass_r is None else mass_r.astype(dt)
+    m_s = jnp.ones((ns,), dt) if mass_s is None else mass_s.astype(dt)
+    g_r = jnp.zeros((nr, 3), dt) if g_r is None else g_r.astype(dt)
+    g_s = jnp.zeros((ns, 3), dt) if g_s is None else g_s.astype(dt)
+    soft = jnp.asarray(softening, dt)
+
+    def block(p_k, g_k, m_k):
+        d = _diffs(p_k, pos_s)  # p_s - p_k, (C, Ns) per axis
+        d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        inv = jax.lax.rsqrt(d2 + soft)
         inv2 = inv * inv
-        w = inv2 * inv          # s^(-3/2)
-        u = w * inv2            # s^(-5/2)
-        # Self/coincident-pair mask (module docstring): without it the
-        # eps^-1.5 self weight destroys the +-w g_k cancellation in fp32.
-        zero = d2 == 0.0
-        w = jnp.where(zero, 0.0, w)
-        u = jnp.where(zero, 0.0, u)
-        m_w = mass[None, :] * w
-        m_u = mass[None, :] * u
-        # receiver side: sum_j m_j (-w g_k + 3 u (g_k . d) d)
-        dot_gk_d = jnp.sum(g_c[:, None, :] * d, axis=-1)  # (C, N)
-        t_recv = (
-            -jnp.sum(m_w, axis=1, keepdims=True) * g_c
-            + 3.0 * jnp.sum((m_u * dot_gk_d)[:, :, None] * d, axis=1)
-        )
-        # source side: m_k sum_i (w g_i - 3 u (g_i . d) d)   [d sign-safe:
-        # the quadratic form is even in d and w g_i has no d factor]
-        dot_gi_d = jnp.sum(g[None, :, :] * d, axis=-1)
-        # HIGHEST: this einsum is a matmul, and TPU's default single-pass
-        # bf16 MXU contraction costs ~3e-3 relative gradient error.
-        t_src = m_c[:, None] * (
-            jnp.einsum("kn,nc->kc", w, g,
-                       precision=jax.lax.Precision.HIGHEST)
-            - 3.0 * jnp.sum((u * dot_gi_d)[:, :, None] * d, axis=1)
-        )
-        pos_bar = t_recv + t_src
-        if not with_mass_grad:
-            return pos_bar
-        # mass_bar_k = sum over receivers j of g_j . (w d_jk), d_jk = -d
-        mass_bar = -jnp.sum(w * dot_gi_d, axis=1)
-        return pos_bar, mass_bar
+        w = jnp.where(d2 == 0.0, 0.0, inv2 * inv)
+        u = w * inv2
+        bar = jnp.zeros(p_k.shape, dt)
+        c = jnp.zeros(d2.shape, dt)
+        if recv_terms:
+            bar = bar - jnp.sum(m_s[None, :] * w, axis=1,
+                                keepdims=True) * g_k
+            c = m_s[None, :] * sum(g_k[:, k, None] * d[k] for k in range(3))
+        if src_terms or mass_grad:
+            gsd = sum(g_s[None, :, k] * d[k] for k in range(3))
+        if src_terms:
+            # sum_s w g_s, an elementwise reduction (no matmul, no TF32)
+            tw = jnp.stack([jnp.sum(w * g_s[None, :, k], axis=1)
+                            for k in range(3)], axis=-1)
+            bar = bar + m_k[:, None] * tw
+            c = c - m_k[:, None] * gsd
+        uc = u * c
+        bar = bar + 3.0 * jnp.stack([jnp.sum(uc * d[k], axis=1)
+                                     for k in range(3)], axis=-1)
+        if mass_grad:
+            return bar, -jnp.sum(w * gsd, axis=1)
+        return bar
 
-    if n <= row_chunk:
-        return block((pos, g, mass))
-    n_pad = -(-n // row_chunk) * row_chunk
-    if n_pad != n:
-        # zero-mass origin padding is inert on both sides of the VJP
-        pos = jnp.pad(pos, ((0, n_pad - n), (0, 0)))
-        g = jnp.pad(g, ((0, n_pad - n), (0, 0)))
-        mass = jnp.pad(mass, (0, n_pad - n))
-    chunks = (
-        pos.reshape(-1, row_chunk, 3),
-        g.reshape(-1, row_chunk, 3),
-        mass.reshape(-1, row_chunk),
-    )
-    out = jax.lax.map(block, chunks)
-    if with_mass_grad:
-        pos_bar, mass_bar = out
-        return pos_bar.reshape(n_pad, 3)[:n], mass_bar.reshape(n_pad)[:n]
-    return out.reshape(n_pad, 3)[:n]
+    chunk = row_chunk or auto_row_chunk(ns, _VJP_BUDGET)
+    return map_row_chunks(block, chunk, pos_r, g_r, m_r)
+
+
+def vjp_terms(backend: str, *args, interpret: bool = False,
+              tile_i: int | None = None, tile_j: int | None = None, **kw):
+    """vjp_jnp or its Pallas twin, by backend name."""
+    if backend == "pallas":
+        from mini_nbody_tpu.ops.pallas_force import vjp_pallas
+
+        return vjp_pallas(*args, interpret=interpret, tile_i=tile_i,
+                          tile_j=tile_j, **kw)
+    return vjp_jnp(*args, **kw)
 
 
 def make_body_force_diff(force_impl, softening: float, backward: str = "jnp",
                          interpret: bool = False, unit_mass: bool = False,
-                         tile_i: int | None = None, tile_j: int | None = None,
-                         mass_grad: bool = False,
-                         sym_bwd_tile: int | None = None,
-                         coincident: str = "auto"):
+                         mass_grad: bool = False, tile_i: int | None = None,
+                         tile_j: int | None = None):
     """Wrap ``force_impl(pos, mass) -> (N,3)`` (square self-force, any
     backend, non-differentiable) into a custom-VJP differentiable function.
 
-    Forward runs the kernel; backward is the analytic pairwise VJP —
-    chunked jnp (backward="jnp"; portable, memory-bound), the fp32 Pallas
-    backward kernels (backward="pallas"; ops/vjp_kernel.py), or the
-    bf16-accumulate MXU hybrid (backward="mxu"; ops/vjp_mxu.py — matches
-    the error class of the sym_mxu/mxu forwards and is ~2x faster than the
-    fp32 symmetric backward).
-    Gradients flow to pos; with mass_grad=True also to the per-body masses
-    (dF_j/dm_k = w d_jk, ~2 extra ops/pair), otherwise the mass cotangent
-    is zero (mass treated as a static property).
-
-    coincident routes the symmetric backward kernels' off-diagonal
-    d2 == 0 mask (vjp_pos_sym / vjp_pos_sym_mxu docstrings) and
-    the overlap-conditional masks of vjp_pos_pallas and the
-    rect-called-square mxu fallback (square calls: self pairs only live
-    in range-intersecting blocks). Chunked jnp always masks."""
+    Forward runs force_impl; backward is the analytic pairwise VJP through
+    vjp_terms(backward). Gradients flow to pos; with mass_grad=True also to
+    the per-body masses, otherwise the mass cotangent is zero (mass treated
+    as a static property)."""
     if mass_grad and unit_mass:
         raise ValueError("mass_grad=True requires a mass-mode force "
                          "(unit_mass=False)")
-    # Symmetric-backward tile override (utils/autotune's bwd family);
-    # None keeps each kernel's measured-best default.
-    _sym_kw = {} if sym_bwd_tile is None else {"tile": sym_bwd_tile}
-    _sym_kw["coincident"] = coincident
 
     @jax.custom_vjp
     def body_force_diff(pos, mass):
@@ -152,74 +132,13 @@ def make_body_force_diff(force_impl, softening: float, backward: str = "jnp",
 
     def _bwd(res, g):
         pos, mass = res
-        if backward == "mxu" and (not mass_grad or pos.shape[0] <= _SYM_BWD_MAX):
-            from mini_nbody_tpu.ops.vjp_mxu import (
-                vjp_pos_sym_mxu, vjp_rect_mxu)
-
-            if pos.shape[0] <= _SYM_BWD_MAX:
-                # Each unordered pair once; single launch bounded by the
-                # (ko, N) VMEM reaction buffer (same class as vjp_pos_sym).
-                out = vjp_pos_sym_mxu(
-                    pos, g, None if unit_mass else mass,
-                    softening=softening, interpret=interpret,
-                    mass_grad=mass_grad, **_sym_kw,
-                )
-                if mass_grad:
-                    return out
-                return out, jnp.zeros_like(mass)
-            # Beyond: the rect kernel called square (pos vs pos) IS the
-            # ordered MXU backward — j streams in blocks, so N is unbounded
-            # (no whole-N reaction buffer) and it still beats the fp32
-            # ordered kernel (89 vs 85 G pair-grads/s).
-            m = None if unit_mass else mass
-            pos_bar = vjp_rect_mxu(
-                pos, g, pos, g, m, m,
-                softening=softening, interpret=interpret,
-                coincident=coincident,
-            )
-            return pos_bar, jnp.zeros_like(mass)
-        if backward == "pallas" and (not mass_grad
-                                     or pos.shape[0] <= _SYM_BWD_MAX):
-            from mini_nbody_tpu.ops.vjp_kernel import (
-                vjp_pos_pallas, vjp_pos_sym)
-
-            if pos.shape[0] <= _SYM_BWD_MAX:
-                # Each unordered pair once (the pairwise gradient is
-                # antisymmetric); single kernel launch bounded by the
-                # (3, N) VMEM reaction buffer — beyond that, the ordered
-                # j-streaming backward. Like the symmetric forward kernels,
-                # this one has its own tuned tiling (tile=640 measured best;
-                # see force.py's rationale), so cfg tiles are deliberately
-                # not forwarded here.
-                out = vjp_pos_sym(
-                    pos, g, None if unit_mass else mass,
-                    softening=softening, interpret=interpret,
-                    mass_grad=mass_grad, **_sym_kw,
-                )
-                if mass_grad:
-                    return out
-                return out, jnp.zeros_like(mass)
-            # cfg tiles forward to the ordered backward deliberately
-            # (VERDICT r1 item 8): the SimConfig default (512,2048) measured
-            # FASTER than the kernel's old tuned (256,2048) on v5e
-            # (56.3 vs 54.1 G pair-grads/s) and compiles within VMEM.
-            kw = {}
-            if tile_i is not None:
-                kw["tile_i"] = tile_i
-            if tile_j is not None:
-                kw["tile_j"] = tile_j
-            pos_bar = vjp_pos_pallas(
-                pos, g, None if unit_mass else mass,
-                softening=softening, interpret=interpret,
-                coincident=coincident, **kw,
-            )
-            return pos_bar, jnp.zeros_like(mass)
-        # jnp backward (also the mass_grad path beyond the sym kernel's
-        # single-launch bound — the ordered kernel has no mass output).
-        out = _vjp_pos(pos, g, mass, softening, with_mass_grad=mass_grad)
+        m = None if unit_mass else mass
+        out = vjp_terms(backward, pos, g, m, pos, g, m,
+                        softening=softening, mass_grad=mass_grad,
+                        interpret=interpret, tile_i=tile_i, tile_j=tile_j)
         if mass_grad:
             return out
-        return out, jnp.zeros_like(mass)
+        return out.astype(pos.dtype), jnp.zeros_like(mass)
 
     body_force_diff.defvjp(_fwd, _bwd)
     return body_force_diff
@@ -227,10 +146,9 @@ def make_body_force_diff(force_impl, softening: float, backward: str = "jnp",
 
 def make_differentiable_force(cfg, mass_grad: bool = False):
     """Differentiable ``force(pos, mass=None) -> (N,3)`` over the configured
-    kernel (SimConfig.backend), suitable for jax.grad / jax.vjp. The backward
-    uses the Pallas VJP kernels whenever the forward is a Pallas backend.
-    mass_grad=True (requires cfg.use_masses) also yields gradients w.r.t.
-    the per-body masses."""
+    backend, suitable for jax.grad / jax.vjp; the backward runs on the same
+    backend as the forward. mass_grad=True (requires cfg.use_masses) also
+    yields gradients w.r.t. the per-body masses."""
     from mini_nbody_tpu.ops.force import make_force_fn
 
     inner = make_force_fn(cfg)
@@ -238,22 +156,10 @@ def make_differentiable_force(cfg, mass_grad: bool = False):
     def impl(pos, mass):
         return inner(pos, pos, mass)
 
-    eff = cfg.effective_backend()
-    if eff == "jnp":
-        backward = "jnp"
-    elif cfg.bf16_class():
-        # bf16-accumulate forward -> matching bf16-class MXU backward
-        # (~2x the fp32 symmetric backward; ops/vjp_mxu.py). mxu with
-        # pair_dtype='float32' is fp32-HIGHEST (fp32-exact class) and keeps
-        # the fp32 backward.
-        backward = "mxu"
-    else:
-        backward = "pallas"
     diff = make_body_force_diff(
-        impl, float(cfg.softening), backward=backward,
-        interpret=cfg.resolve_interpret(), unit_mass=not cfg.use_masses,
-        tile_i=cfg.tile_i, tile_j=cfg.tile_j, mass_grad=mass_grad,
-        sym_bwd_tile=cfg.sym_bwd_tile, coincident=cfg.coincident,
+        impl, float(cfg.softening), backward=cfg.resolve_backend(),
+        interpret=cfg.interpret, unit_mass=not cfg.use_masses,
+        mass_grad=mass_grad, tile_i=cfg.tile_i, tile_j=cfg.tile_j,
     )
 
     def force(pos, mass=None):
@@ -265,72 +171,15 @@ def make_differentiable_force(cfg, mass_grad: bool = False):
 
 
 def make_differentiable_ensemble_force(cfg):
-    """Differentiable ``force(pos, mass=None) -> (B, N, 3)`` over the
-    ensemble drivers (sim.simulate_ensemble's force): forward = the
-    block-diagonal one-chunk-per-system kernel, backward = the BATCHED
-    symmetric backward matching the forward's precision class
-    (vjp_pos_sym_mxu_ensemble for 'sym_mxu', vjp_pos_sym_ensemble for
-    'sym') — the ensemble VJP IS block-diagonal, so the leading-system-axis
-    grid kernel computes exact per-system gradients in ONE launch (the
-    former lax.scan of per-system backwards paid B kernel launches of a
-    tiny grid each — the forward's batching-anomaly class, commit
-    e987bec; measured batched-vs-scan rates in benchmarks/RESULTS.md r4).
-    Gradients flow to pos only (mass treated as static, like the default
-    make_differentiable_force).
-    """
-    eff = cfg.effective_backend()
-    if eff not in ("sym", "sym_mxu"):
-        raise ValueError(
-            "ensemble force requires backend='sym_mxu' or 'sym', got "
-            f"{eff!r}")
-    interp = cfg.resolve_interpret()
-    soft = float(cfg.softening)
-    _bwd_kw = ({} if cfg.sym_bwd_tile is None
-               else {"tile": cfg.sym_bwd_tile})
-
-    if eff == "sym_mxu":
-        from mini_nbody_tpu.ops.sym_mxu_force import (
-            body_force_sym_mxu_ensemble)
-        from mini_nbody_tpu.ops.vjp_mxu import (
-            vjp_pos_sym_mxu_ensemble as _vjp_ens)
-
-        def fwd_impl(pos, mass):
-            return body_force_sym_mxu_ensemble(
-                pos, mass, softening=soft, tile=cfg.sym_tile,
-                interpret=interp, split_w=cfg.split_w,
-                coincident=cfg.coincident)
-    else:
-        from mini_nbody_tpu.ops.symmetric_force import (
-            body_force_symmetric_ensemble)
-        from mini_nbody_tpu.ops.vjp_kernel import (
-            vjp_pos_sym_ensemble as _vjp_ens)
-
-        def fwd_impl(pos, mass):
-            return body_force_symmetric_ensemble(
-                pos, mass, softening=soft, tile=cfg.sym_tile,
-                interpret=interp)
-
-    use_masses = cfg.use_masses
-
-    @jax.custom_vjp
-    def force_diff(pos, mass):
-        return fwd_impl(pos, mass if use_masses else None)
-
-    def _fwd(pos, mass):
-        return force_diff(pos, mass), (pos, mass)
-
-    def _bwd(res, g):
-        pos, mass = res
-        bars = _vjp_ens(pos, g, mass if use_masses else None,
-                        softening=soft, interpret=interp,
-                        coincident=cfg.coincident, **_bwd_kw)
-        return bars, jnp.zeros_like(mass)
-
-    force_diff.defvjp(_fwd, _bwd)
+    """Differentiable ``force(pos, mass=None) -> (B, N, 3)`` for B
+    independent systems: jax.vmap of make_differentiable_force (the
+    ensemble VJP is block-diagonal, so the batched backward is exact per
+    system). Gradients flow to pos only."""
+    single = make_differentiable_force(cfg)
 
     def force(pos, mass=None):
         if mass is None:
             mass = jnp.ones(pos.shape[:2], pos.dtype)
-        return force_diff(pos, mass)
+        return jax.vmap(single)(pos, mass)
 
     return force

@@ -32,8 +32,8 @@ def potential_energy(pos, mass, softening: float = SOFTENING,
 
     def row_block(args):
         pos_c, mass_c, idx_c = args
-        d = pos[None, :, :] - pos_c[:, None, :]  # (C, N, 3)
-        r2 = jnp.sum(d * d, axis=-1) + soft
+        dx, dy, dz = (pos[None, :, k] - pos_c[:, None, k] for k in range(3))
+        r2 = dx * dx + dy * dy + dz * dz + soft  # (C, N)
         inv = jax.lax.rsqrt(r2)
         mm = mass_c[:, None] * mass[None, :]
         # exclude the diagonal (self term) by global index comparison
@@ -64,17 +64,8 @@ def kinetic_energy(vel, mass):
 
 
 def total_energy(state: BodyState, softening: float = SOFTENING):
-    """Kinetic + potential. On real TPU at large N the potential runs
-    through the Pallas kernel (ops/pe_kernel.py, ~300 G pairs/s) instead of
-    the HBM-bound chunked jnp (~1 G pairs/s — hours at N=1M)."""
-    import jax as _jax
-
+    """Kinetic + potential (the chunked-jnp potential, O(N^2) pairs)."""
     ke = kinetic_energy(state.vel, state.mass)
-    if _jax.default_backend() == "tpu" and state.n >= 65536:
-        from mini_nbody_tpu.ops.pe_kernel import potential_energy_pallas
-
-        return ke + potential_energy_pallas(
-            state.pos, state.mass, softening=softening)
     return ke + potential_energy(state.pos, state.mass, softening)
 
 
@@ -115,8 +106,8 @@ def assert_finite(state: BodyState, context: str = ""):
 def total_energy_ensemble(state: BodyState, softening: float = SOFTENING):
     """Per-system total energy (B,) for a batched ensemble state
     (pos/vel (B, N, 3), mass (B, N)) — the drift-gate diagnostic for
-    sim.simulate_ensemble runs. lax.scan over systems (the TPU-safe
-    batching for the Pallas potential path, like the ensemble backward)."""
+    sim.simulate_ensemble runs. lax.scan over systems keeps one system's
+    chunked potential live at a time."""
     import jax as _jax
     import jax.numpy as _jnp
 

@@ -1,4 +1,4 @@
-"""Force-op dispatcher: one API over the jnp / Pallas-direct / Pallas-MXU paths.
+"""Force-op dispatcher: one API over the plain jnp path and the Pallas kernel.
 
 The reference has exactly one datapath elaborated at synthesis time; here the
 backend is a static config choice (SimConfig.backend) resolved at trace time,
@@ -7,10 +7,8 @@ so each choice is its own specialized XLA program.
 
 from __future__ import annotations
 
-import jax.numpy as jnp
-
+from mini_nbody_tpu.ops.reference import auto_row_chunk, body_force_jnp
 from mini_nbody_tpu.utils.config import SOFTENING, SimConfig
-from mini_nbody_tpu.ops.reference import body_force_jnp
 
 
 def body_force(
@@ -19,92 +17,40 @@ def body_force(
     mass_j=None,
     softening: float = SOFTENING,
     backend: str = "jnp",
-    tile_i: int = 256,
-    tile_j: int = 1024,
+    tile_i: int | None = None,
+    tile_j: int | None = None,
     interpret: bool = False,
-    pair_dtype=jnp.float32,
-    split_w: bool = False,
-    traversal: str = "auto",
-    sym_tile: int | None = None,
-    sym_chunk: int | None = None,
-    coincident: str = "auto",
 ):
-    """Forces on pos_i (Ni,3) from sources (pos_j, mass_j). Returns (Ni,3) fp32.
+    """Forces on pos_i (Ni,3) from sources (pos_j, mass_j). Returns (Ni,3).
 
-    All backends handle self/coincident pairs exactly (zero contribution) by
-    construction, so rectangular and sharded calls need no extra flags;
-    `coincident` only selects HOW the MXU-family backends pay for that
-    guarantee (SimConfig.coincident / ops/sym_mxu_force.py docstring):
-    sym_mxu routes it always, mxu on square calls only (rectangular mxu
-    always masks — body_force_mxu docstring), jnp/pallas/sym ignore it.
+    backend "jnp": XLA's fusion of the plain formula, rows chunked so the
+    (rows, Nj) pair block stays bounded at any N. backend "pallas": the
+    Pallas-Triton kernel (ops/pallas_force.py) with tile_i/tile_j blocks
+    (None = its measured defaults, tile_i shrunk for small N); it compiles
+    only on a CUDA GPU unless interpret=True. Both handle self/coincident
+    pairs exactly (zero contribution) by construction.
     """
     if backend == "jnp":
-        # Bound the (Ni, Nj) intermediate for big problems.
         chunk = None
-        ni = pos_i.shape[0]
-        if ni * pos_j.shape[0] > 1 << 24 and ni % tile_i == 0:
-            chunk = tile_i
-        return body_force_jnp(pos_i, pos_j, mass_j, softening=softening, row_chunk=chunk)
+        if pos_i.shape[0] * pos_j.shape[0] > 1 << 24:
+            chunk = auto_row_chunk(pos_j.shape[0])
+        return body_force_jnp(pos_i, pos_j, mass_j, softening=softening,
+                              row_chunk=chunk)
     if backend == "pallas":
         from mini_nbody_tpu.ops.pallas_force import body_force_pallas
 
         return body_force_pallas(
-            pos_i, pos_j, mass_j,
-            softening=softening, tile_i=tile_i, tile_j=tile_j, interpret=interpret,
-        )
-    if backend == "mxu":
-        from mini_nbody_tpu.ops.mxu_force import body_force_mxu
-
-        return body_force_mxu(
-            pos_i, pos_j, mass_j,
-            softening=softening, tile_i=tile_i, tile_j=tile_j,
-            interpret=interpret, pair_dtype=pair_dtype,
-            coincident=coincident,
-        )
-    if backend in ("sym", "sym_mxu"):
-        if pos_i is not pos_j:
-            # Identity, not just shape: a distinct same-shape pos_j would be
-            # silently ignored (the kernel computes self-forces of pos_i).
-            # Values can't be compared at trace time, so require the same
-            # array object; rectangular cross-set forces go through
-            # body_force_pair / the streaming backends.
-            raise ValueError(
-                f"backend {backend!r} computes square self-forces only: "
-                "pos_j must be the same array object as pos_i (got a "
-                "distinct array; use backend='pallas'/'mxu' for rectangular "
-                "calls)"
-            )
-        # The symmetric kernels have their own tuned tiling (tile=1024 with
-        # 131072-body chunks measured fastest on v5e: 346 vs 250 GInter/s at
-        # tile=512); cfg tile_i/tile_j target the streaming kernels, so they
-        # are deliberately not forwarded here. sym_tile/sym_chunk (set by
-        # hand or by utils/autotune) override the kernel defaults.
-        kw = {}
-        if sym_tile is not None:
-            kw["tile"] = sym_tile
-        if sym_chunk is not None:
-            kw["chunk"] = sym_chunk
-        if backend == "sym_mxu":
-            from mini_nbody_tpu.ops.sym_mxu_force import body_force_sym_mxu
-
-            return body_force_sym_mxu(
-                pos_i, mass_j, softening=softening, interpret=interpret,
-                split_w=split_w, coincident=coincident,
-                traversal=traversal, **kw,
-            )
-        from mini_nbody_tpu.ops.symmetric_force import body_force_symmetric
-
-        return body_force_symmetric(
-            pos_i, mass_j, softening=softening, interpret=interpret, **kw,
+            pos_i, pos_j, mass_j, softening=softening, tile_i=tile_i,
+            tile_j=tile_j, interpret=interpret,
         )
     raise ValueError(f"unknown force backend {backend!r}")
 
 
-def make_force_fn(cfg: SimConfig):
-    """Close a SimConfig over body_force: (pos_i, pos_j, mass_j) -> (Ni,3)."""
-    backend = cfg.effective_backend()
-    interpret = cfg.resolve_interpret()
-    pair_dtype = jnp.bfloat16 if cfg.pair_dtype == "bfloat16" else jnp.float32
+def make_force_fn(cfg: SimConfig, backend: str | None = None):
+    """Close a SimConfig over body_force: (pos_i, pos_j, mass_j) -> (Ni,3).
+    backend overrides the config's resolved backend (ensembles resolve
+    'auto' on their total body count)."""
+    backend = backend or cfg.resolve_backend()
 
     def force(pos_i, pos_j, mass_j=None):
         if not cfg.use_masses:
@@ -113,10 +59,7 @@ def make_force_fn(cfg: SimConfig):
             pos_i, pos_j, mass_j,
             softening=cfg.softening, backend=backend,
             tile_i=cfg.tile_i, tile_j=cfg.tile_j,
-            interpret=interpret, pair_dtype=pair_dtype,
-            split_w=cfg.split_w,
-            sym_tile=cfg.sym_tile, sym_chunk=cfg.sym_chunk,
-            coincident=cfg.coincident, traversal=cfg.traversal,
+            interpret=cfg.interpret,
         )
 
     return force

@@ -96,11 +96,6 @@ def yoshida4_step(state: BodyState, acc, force_fn: ForceFn, dt: float):
 INTEGRATORS = {"euler": euler_step, "leapfrog": leapfrog_step,
                "rk4": rk4_step, "yoshida4": yoshida4_step}
 
-#: Force evaluations per step — watchdog pacing must multiply pair-count
-#: estimates by this (a yoshida4 step runs 3 force passes in the same
-#: dispatch; sized at 1 it would run 3x the device-time budget).
-FORCE_EVALS = {"euler": 1, "leapfrog": 1, "rk4": 4, "yoshida4": 3}
-
 #: Integrators whose acc carry is the previous step's final force.
 CARRIES_ACC = ("leapfrog", "yoshida4")
 

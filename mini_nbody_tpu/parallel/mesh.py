@@ -1,11 +1,12 @@
 """Device mesh construction.
 
 The reference is a single-chip design; nothing in its tree crosses a chip
-boundary (SURVEY.md §2 item 6). Scale-out is new, TPU-first work: a
+boundary (SURVEY.md §2 item 6). Scale-out is new work here: a
 ``jax.sharding.Mesh`` over the body axis ("i"), optionally 2-D ("i" x "j"
 — the pair-matrix grid decomposition whose per-step communication is
-O(N/sqrt(P)) instead of the 1-D schemes' O(N)), with XLA collectives over
-ICI.
+O(N/sqrt(P)) instead of the 1-D schemes' O(N)), with XLA collectives
+between the devices. The mesh follows the algorithm: the cards of one host
+reach each other all to all.
 """
 
 from __future__ import annotations

@@ -1,13 +1,13 @@
-"""Multi-host initialization (DCN across hosts, ICI within).
+"""Multi-host initialization (the network across hosts, NVLink within).
 
 The reference is strictly single-chip; scale-out across hosts is new work
 (SURVEY.md §2 item 6). JAX's runtime handles the transport: after
 ``jax.distributed.initialize`` every host sees the global device list, and
-the same 1-D body mesh (parallel.mesh) spans all slices — XLA routes
-collectives over ICI within a slice and DCN between slices automatically.
+the same 1-D body mesh (parallel.mesh) spans all hosts — XLA hands the
+collectives to NCCL, which uses NVLink within a host and the network between
+hosts.
 
-This module is a thin, testable wrapper. Real multi-host TPU runs aren't
-possible in a single-chip environment, but the full multi-PROCESS runtime
+This module is a thin, testable wrapper. The full multi-PROCESS runtime
 path (coordinator handshake, global device list, cross-process collectives)
 is exercised for real by examples/multihost_cpu.py: two+ localhost processes
 with gloo CPU collectives run a ring_sym trajectory whose every ppermute hop

@@ -1,9 +1,9 @@
-"""Mesh-sharded N-body step: shard_map + ICI collectives.
+"""Mesh-sharded N-body step: shard_map + XLA collectives.
 
 Bodies are sharded along "i" (each device owns N/P bodies' full state). Per
 step every device must see all N source positions; two exchange strategies:
 
-* ``all_gather``: one ``lax.all_gather`` of (pos, mass) over ICI, then the
+* ``all_gather``: one ``lax.all_gather`` of (pos, mass), then the
   local force kernel runs i-shard x N. Simple; XLA overlaps the gather with
   whatever it can.
 * ``ring``: P-1 ``lax.ppermute`` hops, computing i-shard x j-shard between
@@ -11,8 +11,8 @@ step every device must see all N source positions; two exchange strategies:
   (one hop per j-shard instead of one RAM word per cycle,
   ``src/top_level.vhd:233-254``). Peak memory O(N/P) instead of O(N), and the
   hop is dependence-free from the force compute on the resident shard so
-  XLA's latency-hiding scheduler can ride it over ICI behind the O((N/P)^2)
-  compute.
+  XLA's latency-hiding scheduler can overlap the transfer with the
+  O((N/P)^2) compute.
 
 The reference's host<->accelerator polling protocol (begin bit / busy flags,
 ``src/top_level.vhd:184-196``) has no analog: dispatch and data dependence
@@ -29,8 +29,10 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
 from mini_nbody_tpu.models.state import BodyState
+from mini_nbody_tpu.ops.autodiff import vjp_terms
 from mini_nbody_tpu.ops.force import body_force
 from mini_nbody_tpu.ops.integrators import INTEGRATORS, initial_acc
+from mini_nbody_tpu.ops.reference import body_force_pair_jnp
 from mini_nbody_tpu.parallel.mesh import BODY_AXIS, COL_AXIS
 from mini_nbody_tpu.utils.config import SimConfig, round_up
 
@@ -61,30 +63,13 @@ def shard_state(state: BodyState, mesh: Mesh, pad_far: bool = False) -> BodyStat
 def _make_local_force(cfg: SimConfig, n_shards: int):
     """Per-device force closure: local i-shard vs all N sources via the
     configured exchange. Signature matches ops.integrators.ForceFn."""
-    backend = cfg.resolve_backend()
-    interpret = cfg.resolve_interpret()
-    # The symmetric kernels compute square self-forces only; cross-shard
-    # exchanges (all_gather, ring cross hops, grid) are rectangular, so
-    # those route to the same-precision-class streaming kernel (the
-    # half-ring comm='ring_sym' is the one that keeps cross-shard pairs on
-    # the symmetric kernels — each pair once). sym_mxu maps to mxu WITH
-    # bf16 pair operands: its fp32 pair_dtype lowering is the rejected
-    # Precision.HIGHEST path (117 GInter/s, benchmarks/RESULTS.md), not
-    # the same precision class.
-    rect_backend = {"sym": "pallas", "sym_mxu": "mxu"}.get(backend, backend)
-    rect_pair_dtype = (
-        jnp.bfloat16
-        if backend == "sym_mxu" or cfg.pair_dtype == "bfloat16"
-        else jnp.float32)
-    kern = partial(
-        body_force,
-        softening=cfg.softening,
-        backend=rect_backend,
-        tile_i=cfg.tile_i,
-        tile_j=cfg.tile_j,
-        interpret=interpret,
-        pair_dtype=rect_pair_dtype,
-    )
+    def kern(pos_i, pos_j, mass_j):
+        # unit-mass configs ignore the state's masses (pad bodies sit at FAR)
+        return body_force(
+            pos_i, pos_j, mass_j if cfg.use_masses else None,
+            softening=cfg.softening, backend=cfg.resolve_backend(),
+            tile_i=cfg.tile_i, tile_j=cfg.tile_j,
+            interpret=cfg.interpret)
 
     if cfg.comm == "all_gather":
 
@@ -119,40 +104,13 @@ def _make_local_force(cfg: SimConfig, n_shards: int):
     if cfg.comm == "ring_sym":
         # Symmetric half-ring: Newton's third law ACROSS shards. A traveling
         # packet (positions [+ masses] + accumulated reactions) makes
-        # ceil((P-1)/2) hops; at each hop the resident shard computes every
-        # cross pair ONCE, adding rows locally and reactions into the
-        # packet, which finally returns to its owner in a single logical
-        # ppermute. Half the compute of the plain ring for roughly the same
-        # ICI volume (2-3 arrays per hop instead of 2, but ~half the hops).
-        # The per-pair kernel family follows cfg.backend: mxu/sym_mxu run
-        # the symmetric x MXU hybrid per shard pair (the fastest kernel,
-        # bf16-accumulate with the compensated operand split); everything
-        # else runs the fp32-exact VPU pair kernel.
-        sym_kw = {}
-        if cfg.sym_tile is not None:
-            sym_kw["tile"] = cfg.sym_tile
-        if cfg.sym_chunk is not None:
-            sym_kw["chunk"] = cfg.sym_chunk
-        if backend in ("mxu", "sym_mxu"):
-            from mini_nbody_tpu.ops import sym_mxu_force
-
-            # coincident='auto' scans the LOCAL shard — exactly the set the
-            # square self kernel sees. Cross-hop pairs keep the pair
-            # kernel's masked default (a per-hop concat rescan would cost
-            # more than the ~13% mask on ring-shard-sized blocks) unless
-            # the caller asserts 'fast' for everything.
-            pair_kernel = partial(
-                sym_mxu_force.body_force_pair_mxu, split_w=cfg.split_w,
-                coincident="fast" if cfg.coincident == "fast" else "masked")
-            self_kernel = partial(sym_mxu_force.body_force_sym_mxu,
-                                  split_w=cfg.split_w,
-                                  coincident=cfg.coincident, **sym_kw)
-        else:
-            from mini_nbody_tpu.ops.symmetric_force import (
-                body_force_pair as pair_kernel, body_force_symmetric)
-
-            self_kernel = partial(body_force_symmetric, **sym_kw)
-
+        # floor(P/2) hops; at each hop the resident shard computes every
+        # cross pair ONCE (body_force_pair_jnp: one weight block gives the
+        # rows and, negated, the reactions), adding rows locally and
+        # reactions into the packet, which finally returns to its owner in a
+        # single logical ppermute. Half the pair arithmetic of the plain
+        # ring for roughly the same traffic (3 arrays per hop instead of 2,
+        # but half the hops). The self hop is the configured square force.
         use_m = cfg.use_masses
         half = n_shards // 2  # hops
         fwd = [(k, (k + 1) % n_shards) for k in range(n_shards)]
@@ -160,9 +118,7 @@ def _make_local_force(cfg: SimConfig, n_shards: int):
 
         def force(pos_local, _pos_j, mass_local):
             m_local = mass_local if use_m else None
-            own = self_kernel(
-                pos_local, m_local,
-                softening=cfg.softening, interpret=interpret)
+            own = kern(pos_local, pos_local, mass_local)
             if n_shards == 1:
                 return own
             pkt_pos = pos_local
@@ -173,12 +129,9 @@ def _make_local_force(cfg: SimConfig, n_shards: int):
                 if use_m:
                     pkt_mass = jax.lax.ppermute(pkt_mass, BODY_AXIS, fwd)
                 pkt_f = jax.lax.ppermute(pkt_f, BODY_AXIS, fwd)
-                fa, fb = pair_kernel(
+                fa, fb = body_force_pair_jnp(
                     pos_local, pkt_pos, m_local, pkt_mass,
-                    softening=cfg.softening,
-                    tile=cfg.sym_tile or cfg.tile_i,
-                    interpret=interpret,
-                )
+                    softening=cfg.softening)
                 if n_shards % 2 == 0 and k == half:
                     # Antipodal hop pairs each shard couple twice; keep the
                     # visit on the lower-index half of the ring.
@@ -196,58 +149,18 @@ def _make_local_force(cfg: SimConfig, n_shards: int):
     # Ring: rotate (pos, mass) shards around the mesh, one hop per shard.
     perm = [(k, (k + 1) % n_shards) for k in range(n_shards)]
 
-    # Hop 0 computes the shard against itself — a square self force, eligible
-    # for the symmetric kernels (each pair once, ~1.7x the direct kernel on
-    # that 1/P slice of the work; mass or unit-mass). Also used under the mxu
-    # backend: it is both faster and more accurate than the bf16-accumulate
-    # matmul the user opted into for the cross hops. Under sym_mxu the self
-    # hop keeps the hybrid (the fastest kernel, same error class).
-    use_sym_self = backend in ("pallas", "sym", "mxu")
-
-    def self_force(pos_local, mass_local):
-        m = mass_local if cfg.use_masses else None
-        sym_kw = {}
-        if cfg.sym_tile is not None:
-            sym_kw["tile"] = cfg.sym_tile
-        if cfg.sym_chunk is not None:
-            sym_kw["chunk"] = cfg.sym_chunk
-        if backend == "sym_mxu":
-            from mini_nbody_tpu.ops.sym_mxu_force import body_force_sym_mxu
-
-            return body_force_sym_mxu(
-                pos_local, m, softening=cfg.softening, interpret=interpret,
-                split_w=cfg.split_w, coincident=cfg.coincident, **sym_kw,
-            )
-        if use_sym_self:
-            from mini_nbody_tpu.ops.symmetric_force import body_force_symmetric
-
-            return body_force_symmetric(
-                pos_local, m, softening=cfg.softening, interpret=interpret,
-                **sym_kw,
-            )
-        return kern(pos_local, pos_local, mass_local)
-
     def force(pos_local, _pos_j, mass_local):
-        def hop(k, carry):
-            acc, cur_pos, cur_mass = carry
-            # Start the permute before the force compute; no data dependence,
-            # so the scheduler overlaps the ICI hop with the O((N/P)^2) math.
-            nxt_pos = jax.lax.ppermute(cur_pos, BODY_AXIS, perm)
-            nxt_mass = jax.lax.ppermute(cur_mass, BODY_AXIS, perm)
-            part = (self_force(pos_local, mass_local) if k == 0
-                    else kern(pos_local, cur_pos, cur_mass))
-            acc = acc + part
-            return acc, nxt_pos, nxt_mass
-
-        acc = jnp.zeros_like(pos_local)
-        carry = (acc, pos_local, mass_local)
-        # Unrolled python loop: n_shards is a static mesh property.
-        for k in range(n_shards - 1):
-            carry = hop(k, carry)
-        acc, cur_pos, cur_mass = carry
-        if n_shards == 1:
-            return acc + self_force(pos_local, mass_local)
-        return acc + kern(pos_local, cur_pos, cur_mass)
+        acc = kern(pos_local, pos_local, mass_local)
+        cur_pos, cur_mass = pos_local, mass_local
+        # Unrolled python loop: n_shards is a static mesh property. Each
+        # permute is issued before the hop's force and carries no data
+        # dependence on it, so the scheduler can overlap the transfer with
+        # the O((N/P)^2) math.
+        for _ in range(n_shards - 1):
+            cur_pos = jax.lax.ppermute(cur_pos, BODY_AXIS, perm)
+            cur_mass = jax.lax.ppermute(cur_mass, BODY_AXIS, perm)
+            acc = acc + kern(pos_local, cur_pos, cur_mass)
+        return acc
 
     return force
 
@@ -258,23 +171,18 @@ def _make_local_diff_force(cfg: SimConfig, n_shards: int):
     its own collective — the backward of a ppermute ring is a ppermute ring
     (here traversed in the same direction: the gradient is a plain sum over
     shards, so hop order is free), and the backward of the all-gather is an
-    all-gather of the cotangents. Each hop/gather feeds the rectangular
-    Pallas backward kernel (ops/vjp_kernel.vjp_pos_rect): local receivers x
+    all-gather of the cotangents. Each hop/gather runs the pairwise VJP
+    (ops/autodiff.vjp_terms, on the configured backend): local receivers x
     visiting sources. Gradients flow to positions only (mass cotangent 0,
     matching ops/autodiff.make_body_force_diff)."""
-    from mini_nbody_tpu.ops.vjp_kernel import vjp_pos_rect
-    from mini_nbody_tpu.ops.vjp_mxu import vjp_rect_mxu
-
     base = _make_local_force(cfg, n_shards)
-    interpret = cfg.resolve_interpret()
     use_m = cfg.use_masses
-    soft = float(cfg.softening)
     ring = cfg.comm in ("ring", "ring_sym")
     perm = [(k, (k + 1) % n_shards) for k in range(n_shards)]
-    # bf16-class forward (sym_mxu; mxu only with bfloat16 pair operands) ->
-    # matching MXU rect backward; fp32-class forwards keep the fp32 ordered
-    # rect kernel (ops/autodiff.py's routing, applied per shard pair).
-    mxu_bwd = cfg.bf16_class()
+    vjp = partial(vjp_terms, cfg.resolve_backend(),
+                  softening=float(cfg.softening),
+                  interpret=cfg.interpret,
+                  tile_i=cfg.tile_i, tile_j=cfg.tile_j)
 
     @jax.custom_vjp
     def force(pos_local, mass_local):
@@ -283,52 +191,28 @@ def _make_local_diff_force(cfg: SimConfig, n_shards: int):
     def _fwd(pos_local, mass_local):
         return base(pos_local, pos_local, mass_local), (pos_local, mass_local)
 
-    def _rect(pos_local, g_local, mass_local, pos_src, g_src, mass_src):
-        if mxu_bwd:
-            return vjp_rect_mxu(
-                pos_local, g_local, pos_src, g_src,
-                mass_local if use_m else None, mass_src if use_m else None,
-                softening=soft, interpret=interpret,
-            )
-        return vjp_pos_rect(
-            pos_local, g_local, pos_src, g_src,
-            mass_local if use_m else None, mass_src if use_m else None,
-            softening=soft, tile_i=cfg.tile_i, tile_j=cfg.tile_j,
-            interpret=interpret,
-        )
-
     def _bwd(res, g_local):
         pos_local, mass_local = res
+        m_local = mass_local if use_m else None
         if cfg.comm == "grid":
             # Transpose-structured O(N/sqrt(P)) backward: the mesh tiles
             # ALL ordered pairs as (row group, gathered over "j") x
             # (col group, gathered over "i") — the same tiling as the
-            # forward — and each device runs the both-sided one-cotangent
-            # pair kernel (vjp_kernel.vjp_pos_pair) on its tile. The
-            # psum_scatter transpose rule supplies the row cotangents (the
-            # forward scattered over COL_AXIS, so the backward all-gathers
-            # g over COL_AXIS), and two psum_scatters — receiver grads
-            # over "j", source grads over "i" — return each shard exactly
-            # its own bodies' gradient. Per-device comm: 2 x O(N/Pi)
-            # gathers + O(N/Pj) gather + O(N/Pi) + O(N/Pj) scatters =
-            # O(N/sqrt(P)), matching the forward (was: double all-gather,
-            # O(N)). fp32-exact pair math for every precision class (the
-            # backward of a bf16-class forward may be MORE accurate).
-            from mini_nbody_tpu.ops.vjp_kernel import vjp_pos_pair
-
+            # forward. Each device takes the receiver terms for its rows and
+            # the source terms for its columns. The psum_scatter transpose
+            # rule supplies the row cotangents (the forward scattered over
+            # COL_AXIS, so the backward all-gathers g over COL_AXIS), and two
+            # psum_scatters — receiver grads over "j", source grads over "i"
+            # — return each shard exactly its own bodies' gradient.
             rows_pos = jax.lax.all_gather(pos_local, COL_AXIS, tiled=True)
             g_rows = jax.lax.all_gather(g_local, COL_AXIS, tiled=True)
             cols_pos = jax.lax.all_gather(pos_local, BODY_AXIS, tiled=True)
-            if use_m:
-                rows_m = jax.lax.all_gather(mass_local, COL_AXIS,
-                                            tiled=True)
-                cols_m = jax.lax.all_gather(mass_local, BODY_AXIS,
-                                            tiled=True)
-            else:
-                rows_m = cols_m = None
-            a_bar, b_bar = vjp_pos_pair(
-                rows_pos, g_rows, cols_pos, rows_m, cols_m,
-                softening=soft, interpret=interpret)
+            cols_m = (jax.lax.all_gather(mass_local, BODY_AXIS, tiled=True)
+                      if use_m else None)
+            a_bar = vjp(rows_pos, g_rows, None, cols_pos, None, cols_m,
+                        src_terms=False)
+            b_bar = vjp(cols_pos, None, cols_m, rows_pos, g_rows, None,
+                        recv_terms=False)
             pos_bar = (
                 jax.lax.psum_scatter(a_bar, COL_AXIS,
                                      scatter_dimension=0, tiled=True)
@@ -341,9 +225,8 @@ def _make_local_diff_force(cfg: SimConfig, n_shards: int):
             # configs would ppermute a dead array every hop)
             cur = (pos_local, g_local) + ((mass_local,) if use_m else ())
             for k in range(n_shards):
-                cur_m = cur[2] if use_m else mass_local
-                acc = acc + _rect(pos_local, g_local, mass_local,
-                                  cur[0], cur[1], cur_m)
+                acc = acc + vjp(pos_local, g_local, m_local, cur[0], cur[1],
+                                cur[2] if use_m else None)
                 if k < n_shards - 1:
                     cur = tuple(
                         jax.lax.ppermute(x, BODY_AXIS, perm) for x in cur)
@@ -353,9 +236,9 @@ def _make_local_diff_force(cfg: SimConfig, n_shards: int):
             g_all = jax.lax.all_gather(g_local, BODY_AXIS, tiled=True)
             mass_all = (jax.lax.all_gather(mass_local, BODY_AXIS,
                                            tiled=True)
-                        if use_m else mass_local)
-            pos_bar = _rect(pos_local, g_local, mass_local,
-                            pos_all, g_all, mass_all)
+                        if use_m else None)
+            pos_bar = vjp(pos_local, g_local, m_local, pos_all, g_all,
+                          mass_all)
         return pos_bar, jnp.zeros_like(mass_local)
 
     force.defvjp(_fwd, _bwd)
@@ -389,6 +272,18 @@ def make_sharded_step_fn(cfg: SimConfig, mesh: Mesh,
     )
 
 
+def sharded_force(cfg: SimConfig, mesh: Mesh, state: BodyState):
+    """Forces (N_pad, 3) of one exchange over a state laid out by
+    shard_state — the force every sharded step evaluates, for checking the
+    exchanges against a single-device force."""
+    force = _make_local_force(cfg, mesh.shape[BODY_AXIS])
+    return shard_map(
+        lambda s: force(s.pos, s.pos, s.mass), mesh=mesh,
+        in_specs=(_state_specs(mesh),), out_specs=P(_body_axes(mesh), None),
+        check_vma=False,
+    )(state)
+
+
 def init_sharded_carry(cfg: SimConfig, mesh: Mesh, state: BodyState):
     n_shards = mesh.shape[BODY_AXIS]
     force = _make_local_force(cfg, n_shards)
@@ -406,40 +301,35 @@ def init_sharded_carry(cfg: SimConfig, mesh: Mesh, state: BodyState):
     return state, acc
 
 
-def simulate_sharded(cfg: SimConfig, mesh: Mesh, state: BodyState, steps=None):
-    """Multi-step sharded trajectory. Returns the final state with the
-    original (unpadded) N.
-
-    Segmented from the host like sim.simulate when the estimated per-device
-    time (O(N^2/P) pairs/step) would trip the execution watchdog; otherwise
-    one XLA program."""
-    from mini_nbody_tpu.sim import max_steps_per_dispatch
-
-    n = state.n
-    steps = cfg.steps if steps is None else steps
-    n_shards = mesh.devices.size
-    state = shard_state(state, mesh, pad_far=not cfg.use_masses)
+@partial(jax.jit, static_argnames=("cfg", "mesh", "steps", "save_every"))
+def _sharded_scan(cfg: SimConfig, mesh: Mesh, carry, steps: int,
+                  save_every: int):
+    """steps sharded steps as one program; snapshots of positions after
+    every save_every-th step when save_every is nonzero."""
     step = make_sharded_step_fn(cfg, mesh)
 
-    @partial(jax.jit, static_argnames=("nsteps",))
-    def run(carry, nsteps):
-        def body(c, _):
-            return step(c), None
+    def run(c, k):
+        return jax.lax.scan(lambda c2, _: (step(c2), None), c, None,
+                            length=k)[0]
 
-        carry, _ = jax.lax.scan(body, carry, None, length=nsteps)
-        return carry
+    if not save_every:
+        return run(carry, steps), None
 
-    from mini_nbody_tpu.sim import _sync
+    def outer(c, _):
+        c = run(c, save_every)
+        return c, c[0].pos
 
+    return jax.lax.scan(outer, carry, None, length=steps // save_every)
+
+
+def simulate_sharded(cfg: SimConfig, mesh: Mesh, state: BodyState, steps=None):
+    """Multi-step sharded trajectory as one XLA program. Returns the final
+    state with the original (unpadded) N."""
+    n = state.n
+    steps = cfg.steps if steps is None else steps
+    state = shard_state(state, mesh, pad_far=not cfg.use_masses)
     carry = init_sharded_carry(cfg, mesh, state)
-    seg = max_steps_per_dispatch(n, n_shards, cfg=cfg)
-    full, rem = divmod(steps, seg) if steps > seg else (0, steps)
-    for _ in range(full):
-        carry = run(carry, nsteps=seg)
-        _sync(carry)  # pace the queue per dispatch (sim._sync docstring)
-    if rem:
-        carry = run(carry, nsteps=rem)
-    final, _ = carry
+    (final, _), _ = _sharded_scan(cfg, mesh, carry, steps, 0)
     return final.unpad(n)
 
 
@@ -448,43 +338,14 @@ def trajectory_sharded(cfg: SimConfig, mesh: Mesh, state: BodyState,
     """Mesh-sharded ``sim.trajectory``: runs the sharded step loop and
     collects position snapshots every `save_every` steps. Returns
     (final_state, pos_history[steps // save_every, N, 3]) with the original
-    (unpadded) N — the history is gathered to host at every watchdog
-    dispatch boundary (device memory holds at most one dispatch's
-    snapshots), so multi-chip runs can produce trajectories without manual
-    stepping (round-2 verdict weak item 7)."""
+    (unpadded) N; the history is gathered to the host."""
     import numpy as np
-
-    from mini_nbody_tpu.sim import _sync, max_steps_per_dispatch
 
     n = state.n
     steps = cfg.steps if steps is None else steps
     if steps % save_every != 0:
         raise ValueError("steps must be divisible by save_every")
-    n_shards = mesh.devices.size
     state = shard_state(state, mesh, pad_far=not cfg.use_masses)
-    step = make_sharded_step_fn(cfg, mesh)
-
-    @partial(jax.jit, static_argnames=("nsaves",))
-    def run(carry, nsaves):
-        def outer(c, _):
-            def inner(c2, _):
-                return step(c2), None
-
-            c, _ = jax.lax.scan(inner, c, None, length=save_every)
-            return c, c[0].pos
-
-        return jax.lax.scan(outer, carry, None, length=nsaves)
-
     carry = init_sharded_carry(cfg, mesh, state)
-    seg = max_steps_per_dispatch(n, n_shards, cfg=cfg)
-    seg = max(save_every, seg - seg % save_every)
-    chunks = []
-    done = 0
-    while done < steps:
-        k = min(seg, steps - done)
-        carry, hist = run(carry, nsaves=k // save_every)
-        _sync(carry)
-        chunks.append(np.asarray(hist)[:, :n])  # gather + unpad on host
-        done += k
-    final, _ = carry
-    return final.unpad(n), np.concatenate(chunks, axis=0)
+    (final, _), hist = _sharded_scan(cfg, mesh, carry, steps, save_every)
+    return final.unpad(n), np.asarray(hist)[:, :n]

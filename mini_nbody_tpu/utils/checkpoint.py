@@ -58,6 +58,10 @@ def load(path) -> Tuple[BodyState, int, Optional[dict]]:
 
 
 def restore_config(cfg_dict: dict) -> SimConfig:
+    """SimConfig from a saved dict; keys of options that no longer exist
+    are dropped, so older checkpoints still resume."""
+    known = {f.name for f in dataclasses.fields(SimConfig)}
+    cfg_dict = {k: v for k, v in cfg_dict.items() if k in known}
     if cfg_dict.get("mesh_shape") is not None:
         cfg_dict = dict(cfg_dict, mesh_shape=tuple(cfg_dict["mesh_shape"]))
     return SimConfig(**cfg_dict)

@@ -4,7 +4,7 @@ The reference centralizes all knobs as compile-time VHDL generics in
 ``src/top_level.vhd:35-47`` (fp32 width, IP latencies, ``num_blocks=12``,
 ``ram_depth``) with SOFTENING hard-baked at ``src/dzsoft.vhd:177`` and the only
 runtime inputs being N and the begin bit of the control word
-(``src/top_level.vhd:184-185``).  The TPU-native equivalent is a frozen
+(``src/top_level.vhd:184-185``).  The equivalent here is a frozen
 dataclass: everything here is a *static* (trace-time) constant, so each config
 compiles to one specialized XLA program — the analog of elaborating the RTL
 with a generic map.
@@ -23,27 +23,19 @@ SOFTENING = 1.0e-9
 DT = 0.01
 
 #: Far-padding coordinate for tail bodies in unit-mass mode: r2 ~ 3e36 stays
-#: finite in fp32 while rsqrt(r2^3) underflows to exactly 0, so padded bodies
+#: finite in fp32 while rsqrt(r2)^3 underflows to exactly 0, so padded bodies
 #: are inert without a mass multiply (the WRITE_MASK analog,
 #: ``src/top_level.vhd:201-205``).
 FAR = 1.0e18
 
-_BACKENDS = ("auto", "jnp", "pallas", "mxu", "sym", "sym_mxu")
+_BACKENDS = ("auto", "jnp", "pallas")
+
+#: Crossover of backend='auto' on a GPU: below this many bodies per force
+#: call XLA's plain version was faster than the Pallas kernel end to end
+#: (H100: 21 vs 39 us/step at N=2048, 64 vs 62 at N=4096; PERF.md).
+PALLAS_MIN_BODIES = 4096
 _INTEGRATORS = ("euler", "leapfrog", "rk4", "yoshida4")
-_PAIR_DTYPES = ("float32", "bfloat16")
-
-
-
-COINCIDENT_MODES = ("auto", "masked", "fast")
-
-
-def check_coincident(value: str) -> str:
-    """Validate a coincident-mode flag (shared by SimConfig and every
-    coincident-aware kernel entry point)."""
-    if value not in COINCIDENT_MODES:
-        raise ValueError(
-            f"coincident must be one of {COINCIDENT_MODES}, got {value!r}")
-    return value
+_COMMS = ("all_gather", "ring", "ring_sym", "grid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,87 +55,35 @@ class SimConfig:
         composition of three leapfrog substeps: O(dt^4) AND symplectic —
         three force evaluations per step, the long-horizon high-accuracy
         choice; ops/integrators.py).
-      backend: force-kernel implementation. "auto" picks "pallas" on TPU and
-        "jnp" elsewhere. "mxu" = hybrid kernel that routes the O(N^2) force
-        accumulation through the matrix unit (see ops/mxu_force.py). "sym" =
-        Newton's-third-law kernel computing each pair once (fp32-exact,
-        mass or unit-mass; see ops/symmetric_force.py). "sym_mxu" =
-        symmetric x MXU hybrid: w once per unordered pair on the VPU, row
-        AND reaction sums as MXU matmuls — the fastest kernel (472.9
-        GInter/s at N=1M on v5e, mass mode same speed) at bf16-accumulate
-        accuracy with the compensated operand split (~1e-4 median force
-        error; see ops/sym_mxu_force.py). The pair-once backends shard
-        under every comm: comm='ring_sym' preserves each-pair-once across
-        shards; 'ring' keeps the symmetric kernel for the self-shard hop
-        and streams cross hops through pallas / mxu-bf16 respectively;
-        'all_gather' and 'grid' (rectangular throughout) stream ALL work
-        through the same-precision-class streaming kernel.
-      pair_dtype: precision knob for the mxu backend's accumulation matmul
-        operands ("bfloat16" = single-pass MXU, the throughput mode;
-        "float32" = exact contract). Distances are always exact fp32, and
-        accumulators are always fp32 (the reference datapath is all fp32,
+      backend: force implementation. "jnp" = the plain formula as XLA
+        compiles it (ops/reference.py); "pallas" = the Pallas-Triton kernel
+        (ops/pallas_force.py), which compiles only on a CUDA GPU unless
+        interpret=True; "auto" = the measured winner: "pallas" on a GPU
+        from PALLAS_MIN_BODIES bodies per force call, "jnp" below that and
+        off the GPU. Every path is fp32 with no matrix
+        product (the reference datapath is all fp32,
         ``src/top_level.vhd:35-36``).
-      tile_i: i-body block resident in VMEM per kernel invocation (the analog
-        of the 12 i-registers, ``src/top_level.vhd:83,206-229`` — scaled up to
-        VPU width).
-      tile_j: j-target block streamed per grid step (the analog of the
-        1-per-cycle j-stream, ``src/top_level.vhd:233-254``).
-      sym_tile / sym_chunk: tiling overrides for the symmetric kernels
-        (sym / sym_mxu), which otherwise use their own measured-best
-        defaults (tile=1024, chunk=131072 on v5e). Set by utils/autotune
-        or by hand; None = kernel defaults.
-      sym_bwd_tile: tile override for the symmetric BACKWARD kernels
-        (vjp_pos_sym / vjp_pos_sym_mxu); None = kernel defaults (640/768).
-      resident_tile: tile override for the whole-trajectory resident
-        kernel (ops/resident_sym.py); None = resident_sym.auto_tile.
+      tile_i: receiver block of the Pallas kernel, a power of two (the
+        analog of the 12 i-registers, ``src/top_level.vhd:83,206-229``);
+        None = the kernel's measured default, shrunk for small N.
+      tile_j: source tile its in-kernel loop streams (the analog of the
+        1-per-cycle j-stream, ``src/top_level.vhd:233-254``); power of two,
+        None = measured default.
       mesh_shape: devices along the body-sharding axis (1-tuple), or the
         (rows, cols) of the 2-D pair-matrix grid for comm='grid'; None =
-        single chip.
-      comm: cross-chip position exchange: "all_gather", "ring" (ppermute,
+        single device.
+      comm: cross-device position exchange: "all_gather", "ring" (ppermute,
         one hop per shard, each ordered pair computed), "ring_sym"
         (symmetric half-ring: Newton's third law across shards — half the
-        compute, ~same ICI volume), or "grid" (2-D pair-matrix
+        pair arithmetic, ~same traffic), or "grid" (2-D pair-matrix
         decomposition on an ("i","j") mesh: per-device comm O(N/sqrt(P))
         instead of O(N); mesh_shape must be 2-D).
-      interpret: force Pallas interpret mode (CPU testing); None = auto
-        (interpret unless running on real TPU).
+      interpret: run the Pallas kernel in the Pallas interpreter (CPU
+        tests). Never chosen by platform.
       use_masses: apply per-body masses from BodyState.mass in the force law.
         False = unit masses (reference semantics, ``src/fxyz.vhd:120-127``
         has no mass factor) — enables the kernels' mass-free fast path with
         far-padded tails.
-      split_w: sym_mxu accuracy knob — compensate the bf16 rounding of the
-        pair-weight matrix with a second lo-pass matmul (~1e-5-class force
-        error at ~306 GInter/s vs ~1e-4 at 413; see
-        benchmarks/RESULTS.md "Compensated bf16 operand splits"). The
-        accuracy record for mass systems; unit-mass systems are better
-        served by the fp32-exact 'sym'. Ignored by other backends.
-      coincident: how the sym_mxu kernels keep exactly-coincident DISTINCT
-        bodies at their exact zero mutual force. "auto" (default): an
-        O(N log N) exact duplicate scan picks maskless kernels (+12.8%
-        measured at N=1M) whenever no duplicates exist — bitwise identical
-        to "masked" for every input. "masked": the round-2 per-pair
-        d2 == 0 mask everywhere. "fast": maskless unconditionally (caller
-        guarantees distinct positions). Self pairs are always exact;
-        other backends need no flag (ops/sym_mxu_force.py docstring).
-        Also routes the symmetric backward kernels (vjp_pos_sym /
-        vjp_pos_sym_mxu — the fp32 one agrees to a few ulp rather than
-        bitwise, see its docstring) and the resident kernel, where "auto"
-        stays masked (a fused trajectory can form duplicates at any step;
-        only "fast" unlocks maskless bands there).
-      resident: whole-trajectory resident kernel (ops/resident_sym.py:
-        every step fused into ONE Pallas launch, state in VMEM, leapfrog
-        via half-kick staggering). None = auto: simulate() routes
-        symmetric-class configs there on TPU below the measured streamed
-        crossover (sim.RESIDENT_AUTO_MAX_N). True forces it up to the
-        VMEM cap (RESIDENT_SYM_MAX_N); False pins the streamed path.
-        The precision class always follows the backend ('sym'/'auto' ->
-        fp32-exact, 'sym_mxu' -> bf16-accumulate).
-      fused_integrate: fold the Euler integrate into the direct kernel's
-        epilogue (ops/pallas_force.euler_step_fused) — the blueprint's
-        SURVEY §7 step 2. Measured +0.7% at N=1M on the pallas backend (the
-        integrate is O(N); the win is the saved F round-trip). Requires
-        integrator="euler", backend="pallas", single chip; the step's acc
-        carry is returned as zeros (F never leaves the kernel).
     """
 
     n: int
@@ -152,22 +92,12 @@ class SimConfig:
     softening: float = SOFTENING
     integrator: str = "euler"
     backend: str = "auto"
-    pair_dtype: str = "float32"
-    tile_i: int = 512
-    tile_j: int = 2048
-    sym_tile: Optional[int] = None
-    sym_chunk: Optional[int] = None
-    sym_bwd_tile: Optional[int] = None
-    resident_tile: Optional[int] = None
+    tile_i: Optional[int] = None
+    tile_j: Optional[int] = None
     mesh_shape: Optional[Tuple[int, ...]] = None
     comm: str = "all_gather"
-    interpret: Optional[bool] = None
+    interpret: bool = False
     use_masses: bool = False
-    fused_integrate: bool = False
-    split_w: bool = False
-    resident: Optional[bool] = None
-    coincident: str = "auto"
-    traversal: str = "auto"
 
     def __post_init__(self):
         if self.n <= 0:
@@ -178,25 +108,8 @@ class SimConfig:
             raise ValueError(
                 f"integrator must be one of {_INTEGRATORS}, got {self.integrator!r}"
             )
-        if self.traversal not in ("auto", "slots", "band"):
-            raise ValueError(
-                f"traversal must be auto/slots/band, got {self.traversal!r}")
-        if self.pair_dtype not in _PAIR_DTYPES:
-            raise ValueError(
-                f"pair_dtype must be one of {_PAIR_DTYPES}, got {self.pair_dtype!r}"
-            )
-        check_coincident(self.coincident)
-        # backend 'sym'/'sym_mxu' under a rectangular exchange routes
-        # streaming work to the same precision class (sym -> pallas,
-        # sym_mxu -> mxu with bf16 pair operands); 'ring' keeps the
-        # symmetric kernel for the self-shard hop, 'all_gather'/'grid'
-        # stream everything; only comm='ring_sym' preserves each-pair-once
-        # ACROSS shards (parallel/sharded.py).
-        if self.comm not in ("all_gather", "ring", "ring_sym", "grid"):
-            raise ValueError(
-                "comm must be 'all_gather', 'ring', 'ring_sym' or 'grid', "
-                f"got {self.comm!r}"
-            )
+        if self.comm not in _COMMS:
+            raise ValueError(f"comm must be one of {_COMMS}, got {self.comm!r}")
         if self.mesh_shape is not None:
             want = 2 if self.comm == "grid" else 1
             if len(self.mesh_shape) != want:
@@ -204,72 +117,24 @@ class SimConfig:
                     f"comm {self.comm!r} needs a {want}-D mesh_shape, got "
                     f"{self.mesh_shape}"
                 )
-        if self.fused_integrate and (
-                self.integrator != "euler" or self.backend != "pallas"
-                or self.mesh_shape is not None):
-            raise ValueError(
-                "fused_integrate requires integrator='euler', "
-                "backend='pallas', single chip"
-            )
-        if self.resident:
-            if self.mesh_shape is not None or self.fused_integrate:
-                raise ValueError(
-                    "resident=True needs a single chip and no "
-                    "fused_integrate (the resident kernel fuses its own)")
-            if self.integrator not in ("euler", "leapfrog", "yoshida4"):
-                raise ValueError(
-                    "resident=True supports integrator 'euler', 'leapfrog' "
-                    f"or 'yoshida4', got {self.integrator!r}")
-            if self.split_w:
-                raise ValueError(
-                    "resident=True has no split_w accuracy mode (the "
-                    "resident kernel runs the plain compensated operand "
-                    "split); use the streamed path for split_w")
-            if self.effective_backend() not in ("sym", "sym_mxu", "jnp"):
-                raise ValueError(
-                    "resident=True requires a symmetric-class backend "
-                    "('auto'/'sym'/'sym_mxu'), got "
-                    f"{self.backend!r}")
-        if self.tile_i % 8 != 0:
-            raise ValueError(f"tile_i must be a multiple of 8 (sublanes), got {self.tile_i}")
-        if self.tile_j % 128 != 0:
-            raise ValueError(f"tile_j must be a multiple of 128 (lanes), got {self.tile_j}")
+        for name in ("tile_i", "tile_j"):
+            t = getattr(self, name)
+            if t is not None and (t <= 0 or t & (t - 1)):
+                raise ValueError(f"{name} must be a power of two, got {t}")
 
-    def resolve_backend(self) -> str:
-        """Resolve 'auto' to a concrete backend for the current platform."""
+    def resolve_backend(self, bodies: Optional[int] = None) -> str:
+        """Resolve 'auto' to the measured winner: on a GPU the Pallas kernel
+        once a force call covers PALLAS_MIN_BODIES bodies (``bodies``:
+        B * N for a batch of B systems; default n), XLA's plain version
+        below that (PERF.md); jnp everywhere else."""
         if self.backend != "auto":
             return self.backend
         import jax
 
-        return "pallas" if jax.default_backend() == "tpu" else "jnp"
-
-    def effective_backend(self, sharded: bool = False) -> str:
-        """The backend actually used by make_force_fn: auto upgrades to the
-        symmetric kernel for single-chip configs on TPU, unit-mass or mass
-        mode (any N: the chunk-pair decomposition is a lax.scan with constant
-        compile cost)."""
-        backend = self.resolve_backend()
-        if self.backend == "auto" and backend == "pallas" and not sharded:
-            return "sym"
-        return backend
-
-    def bf16_class(self) -> bool:
-        """True when the configured force path accumulates through
-        single-pass bf16 MXU matmuls (sym_mxu always; mxu only with
-        pair_dtype='bfloat16' — with 'float32' it runs Precision.HIGHEST,
-        fp32-exact class). Drives the check gate's tolerance tier and the
-        backward-kernel routing (fp32 forwards keep fp32 backwards)."""
-        eff = self.effective_backend()
-        return eff == "sym_mxu" or (eff == "mxu"
-                                    and self.pair_dtype == "bfloat16")
-
-    def resolve_interpret(self) -> bool:
-        """Pallas interpret mode: real Mosaic on TPU, interpreter elsewhere."""
-        if self.interpret is not None:
-            return self.interpret
-        import jax
-
-        return jax.default_backend() != "tpu"
+        if jax.default_backend() != "gpu":
+            return "jnp"
+        return ("pallas" if (bodies or self.n) >= PALLAS_MIN_BODIES
+                else "jnp")
 
     def replace(self, **kw) -> "SimConfig":
         return dataclasses.replace(self, **kw)

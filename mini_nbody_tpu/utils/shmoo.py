@@ -1,9 +1,9 @@
 """Shmoo sweep: scaling study over N (BASELINE.json config 5).
 
-The TPU analog of the upstream mini-nbody shmoo harness (and of reading the
+The analog of the upstream mini-nbody shmoo harness (and of reading the
 reference's kilocycle counter per pass, ``src/top_level.vhd:146,255-263``):
-sweep N, time the jitted step, report GInteractions/s + roofline fraction,
-emit CSV/JSON rows.
+sweep N, time the jitted step, report GInteractions/s + peak share, emit
+CSV/JSON rows.
 """
 
 from __future__ import annotations
@@ -17,84 +17,35 @@ import jax
 import jax.numpy as jnp
 
 from mini_nbody_tpu.models import init as minit
-from mini_nbody_tpu.sim import _route_resident, make_step_fn
+from mini_nbody_tpu.sim import make_step_fn
 from mini_nbody_tpu.utils.config import SimConfig
-from mini_nbody_tpu.utils.harness import (
-    Throughput, auto_inner, roofline_path, time_step_fn)
+from mini_nbody_tpu.utils.harness import Throughput, time_step_fn
 
 FIELDS = ["n", "backend", "seconds", "ginteractions_per_s", "per_device",
-          "gflops_20c", "roofline_frac"]
-
-
-def _time_resident(cfg: SimConfig, state, reps: int) -> float:
-    """Seconds/step of the multi-step fused resident kernel (the path
-    simulate() actually takes at this config), amortized over
-    auto_inner(n) in-kernel steps per sync — same methodology as the
-    streamed time_step_fn."""
-    import time
-
-    import numpy as np
-
-    from mini_nbody_tpu.ops.resident_sym import simulate_resident_sym
-
-    # Interpret mode (CPU tests) executes the kernel step-by-step in
-    # Python: full amortization there would take hours and measures
-    # nothing real anyway.
-    steps = 4 if cfg.resolve_interpret() else auto_inner(cfg.n)
-    mxu = cfg.effective_backend() == "sym_mxu"
-
-    def once():
-        t0 = time.perf_counter()
-        pos, _ = simulate_resident_sym(
-            state.pos, state.vel, state.mass if cfg.use_masses else None,
-            steps=steps, dt=float(cfg.dt), softening=float(cfg.softening),
-            mxu=mxu, tile=cfg.resident_tile,
-            interpret=cfg.resolve_interpret(), coincident=cfg.coincident)
-        np.asarray(jax.device_get(pos[0, 0]))
-        return time.perf_counter() - t0
-
-    once()
-    return min(once() for _ in range(reps)) / steps
+          "gflops_20c", "fp32_peak_frac"]
 
 
 def sweep(cfg: SimConfig, ns: List[int], reps: int = 3,
           mesh: Optional[object] = None) -> List[dict]:
-    """Time one integration step per N in ns; returns report rows.
-
-    Single-chip rows follow simulate()'s own routing: configs that
-    auto-route the resident kernel (sim.RESIDENT_AUTO_MAX_N) are timed on
-    it and labeled ``<backend>_resident`` — the shmoo reports what the
-    framework delivers, not just the streamed kernel."""
+    """Time one integration step per N in ns; returns report rows."""
     rows = []
     n_devices = 1 if mesh is None else mesh.devices.size
     for n in ns:
         c = cfg.replace(n=n)
         state = minit.uniform_random(jax.random.key(0), n)
-        resident = mesh is None and _route_resident(c, steps=2)
-        if resident:
-            sec = _time_resident(c, state, reps)
-            t = Throughput(n=n, steps=1, seconds=sec, n_devices=1)
-            row = {"backend": c.effective_backend() + "_resident",
-                   **t.report(path=roofline_path(c))}
-            row.pop("steps", None)
-            rows.append(row)
-            continue
         if mesh is None:
             step = make_step_fn(c)
-            acc = jnp.zeros_like(state.pos)
-            carry = (state, acc)
+            carry = (state, jnp.zeros_like(state.pos))
         else:
             from mini_nbody_tpu.parallel.sharded import (
                 init_sharded_carry, make_sharded_step_fn, shard_state)
 
-            state = shard_state(state, mesh)
+            state = shard_state(state, mesh, pad_far=not c.use_masses)
             step = make_sharded_step_fn(c, mesh)
             carry = init_sharded_carry(c, mesh, state)
-        sec = time_step_fn(step, carry, n=n, reps=reps)
+        sec = time_step_fn(step, carry, reps=reps)
         t = Throughput(n=n, steps=1, seconds=sec, n_devices=n_devices)
-        eff = c.effective_backend(sharded=mesh is not None)
-        row = {"backend": eff,
-               **t.report(path=roofline_path(c, sharded=mesh is not None))}
+        row = {"backend": c.resolve_backend(), **t.report()}
         row.pop("steps", None)
         rows.append(row)
     return rows

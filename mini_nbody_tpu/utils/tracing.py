@@ -2,7 +2,7 @@
 
 The reference's entire observability system is one hardware kilocycle counter
 published in control-word bits 63:32 at completion
-(``src/top_level.vhd:95-96,121-146,255-263``). The TPU-native replacement:
+(``src/top_level.vhd:95-96,121-146,255-263``). The replacement here:
 
 * ``profile_trace``: capture a jax.profiler trace (TensorBoard-viewable,
   includes per-kernel device timelines) around any callable.

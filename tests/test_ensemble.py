@@ -1,9 +1,6 @@
-"""Ensemble simulation: B independent systems batched on one chip
-(ops/sym_mxu_force.body_force_sym_mxu_ensemble + sim.simulate_ensemble).
-
-Each system occupies one chunk of the symmetric traversal with only the
-self-chunk scan running, so every per-system result must be BITWISE equal
-to a standalone single-system call with the same tile and chunk."""
+"""Ensemble simulation: B independent systems batched in one program
+(sim.simulate_ensemble / trajectory_ensemble, jax.vmap of the
+single-system force). Every system must match its own simulate() run."""
 
 import jax
 import jax.numpy as jnp
@@ -13,503 +10,59 @@ import pytest
 from mini_nbody_tpu import SimConfig, simulate, simulate_ensemble
 from mini_nbody_tpu.models import init
 from mini_nbody_tpu.models.state import BodyState
-from mini_nbody_tpu.ops.sym_mxu_force import (
-    body_force_sym_mxu,
-    body_force_sym_mxu_ensemble,
-)
-from mini_nbody_tpu.utils.config import round_up
+from mini_nbody_tpu.sim import trajectory, trajectory_ensemble
 
-INTERP = jax.default_backend() != "tpu"
-B, N = 3, 200
-TILE = 64
-C = round_up(N, TILE)
+B, N = 3, 50
 
 
-def _systems(masses=False, key0=0):
+def _systems(masses=False, key0=0, b=B):
     make = init.plummer if masses else init.uniform_random
-    ss = [make(jax.random.key(key0 + i), N) for i in range(B)]
+    ss = [make(jax.random.key(key0 + i), N) for i in range(b)]
     return ss, BodyState(pos=jnp.stack([s.pos for s in ss]),
                          vel=jnp.stack([s.vel for s in ss]),
                          mass=jnp.stack([s.mass for s in ss]))
 
 
-@pytest.mark.parametrize("traversal", ["slots", "band"])
+def _cfg(backend, integrator="leapfrog", masses=True, steps=4):
+    return SimConfig(n=N, dt=1e-3, steps=steps, softening=1e-2,
+                     integrator=integrator, backend=backend, interpret=True,
+                     use_masses=masses)
+
+
+def _close(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    np.testing.assert_allclose(a, b, rtol=1e-6,
+                               atol=1e-7 * max(np.abs(b).max(), 1.0))
+
+
+@pytest.mark.parametrize("backend", ["jnp", "pallas"])
 @pytest.mark.parametrize("masses", [False, True])
-def test_force_bitwise_vs_standalone(masses, traversal):
-    # The bitwise contract holds PER TRAVERSAL: each ensemble kernel (slot
-    # grid / band grid under a system axis) runs the same slots in the
-    # same order as its standalone twin.
-    ss, st = _systems(masses)
-    m = st.mass if masses else None
-    f = np.asarray(body_force_sym_mxu_ensemble(st.pos, m, tile=TILE,
-                                               interpret=INTERP,
-                                               traversal=traversal))
+@pytest.mark.parametrize("integrator", ["euler", "leapfrog", "rk4",
+                                        "yoshida4"])
+def test_matches_per_system_simulate(integrator, masses, backend):
+    ss, st = _systems(masses, key0=10)
+    cfg = _cfg(backend, integrator, masses)
+    out = simulate_ensemble(cfg, st)
+    assert out.pos.shape == (B, N, 3)
     for i in range(B):
-        ref = body_force_sym_mxu(ss[i].pos, ss[i].mass if masses else None,
-                                 tile=TILE, chunk=C, interpret=INTERP,
-                                 traversal=traversal)
-        np.testing.assert_array_equal(f[i], np.asarray(ref))
-
-
-@pytest.mark.parametrize("n,tile", [(192, 64), (300, 64), (128, 128)])
-def test_force_bitwise_band_parities(n, tile):
-    """The batched-grid kernel (one pallas_call, leading system axis) must
-    stay bitwise across band-count parities: nb = 3 (odd), 5 (odd, ragged
-    tail), 1 (single diagonal block) — the even-nb half-band gating and
-    the (i == 0, d == 0) per-system colsT re-init have no standalone
-    analog to catch them."""
-    from mini_nbody_tpu.ops.symmetric_force import (
-        body_force_symmetric, body_force_symmetric_ensemble)
-
-    import contextlib
-
-    c = round_up(n, tile)
-    ss = [init.plummer(jax.random.key(7 * i + 1), n) for i in range(3)]
-    pos = jnp.stack([s.pos for s in ss])
-    mass = jnp.stack([s.mass for s in ss])
-    # Interpret runs compare under disable_jit: XLA:CPU FMA contraction is
-    # compilation-context-dependent (TestEnsembleBackwardBitwise docstring)
-    # and the slot-grid ensemble program contracts differently from the
-    # standalone one at nb == 1.
-    ctx = jax.disable_jit() if INTERP else contextlib.nullcontext()
-    with ctx:
-        f = np.asarray(body_force_sym_mxu_ensemble(pos, mass, tile=tile,
-                                                   interpret=INTERP))
-        g = np.asarray(body_force_symmetric_ensemble(pos, mass, tile=tile,
-                                                     interpret=INTERP))
-        for i in range(3):
-            rf = body_force_sym_mxu(ss[i].pos, ss[i].mass, tile=tile,
-                                    chunk=c, interpret=INTERP)
-            rg = body_force_symmetric(ss[i].pos, ss[i].mass, tile=tile,
-                                      chunk=c, interpret=INTERP)
-            np.testing.assert_array_equal(f[i], np.asarray(rf))
-            np.testing.assert_array_equal(g[i], np.asarray(rg))
+        ref = simulate(cfg, ss[i])
+        _close(out.pos[i], ref.pos)
+        _close(out.vel[i], ref.vel)
 
 
 @pytest.mark.parametrize("integrator", ["euler", "leapfrog", "yoshida4"])
 def test_trajectory_bitwise_vs_per_system(integrator):
-    ss, st = _systems(masses=True)
-    # interpret=INTERP, not True: interpret-mode matmuls on a real TPU run
-    # as single-pass bf16 XLA dots, and the ensemble vs standalone chunked
-    # paths contract with different shapes -> different roundings (~1e-4
-    # relative), so bitwise only holds against the real compiled kernels
-    # there (same fix as test_matches_per_system_jnp_vjp).
-    # resident=False pins BOTH drivers to the streamed route: on TPU the
-    # auto route would take the resident-ensemble kernel, whose leapfrog
-    # merges the half-kicks (fp32 reassociation, ops/resident_sym.py) and
-    # so is bitwise only against standalone RESIDENT runs — covered by
-    # TestResidentEnsemble.
-    cfg = SimConfig(n=N, dt=1e-3, steps=4, backend="sym_mxu", sym_tile=TILE,
-                    use_masses=True, interpret=INTERP, integrator=integrator,
-                    resident=False)
+    # The vmapped kernel runs each system's blocks exactly as a standalone
+    # call does: every system's trajectory is bitwise its own simulate().
+    ss, st = _systems(masses=True, key0=20)
+    cfg = _cfg("pallas", integrator)
     out = simulate_ensemble(cfg, st)
     for i in range(B):
-        ref = simulate(cfg.replace(sym_chunk=C), ss[i])
+        ref = simulate(cfg, ss[i])
         np.testing.assert_array_equal(np.asarray(out.pos[i]),
                                       np.asarray(ref.pos))
         np.testing.assert_array_equal(np.asarray(out.vel[i]),
                                       np.asarray(ref.vel))
-
-
-def test_cross_system_duplicates_stay_maskless():
-    # two identical systems: every body duplicated ACROSS systems, none
-    # within -> the per-system scan must not flag, so 'auto' == 'fast'.
-    s = init.uniform_random(jax.random.key(9), N)
-    pos = jnp.stack([s.pos, s.pos])
-    fa = np.asarray(body_force_sym_mxu_ensemble(pos, tile=TILE,
-                                                interpret=INTERP,
-                                                coincident="auto"))
-    ff = np.asarray(body_force_sym_mxu_ensemble(pos, tile=TILE,
-                                                interpret=INTERP,
-                                                coincident="fast"))
-    np.testing.assert_array_equal(fa, ff)
-    # and both systems see identical forces (same inputs)
-    np.testing.assert_array_equal(fa[0], fa[1])
-
-
-def test_within_system_duplicate_routes_masked():
-    s = init.uniform_random(jax.random.key(10), N)
-    dup = s.pos.at[150].set(s.pos[3])
-    pos = jnp.stack([s.pos, dup])
-    fa = np.asarray(body_force_sym_mxu_ensemble(pos, tile=TILE,
-                                                interpret=INTERP,
-                                                coincident="auto"))
-    fm = np.asarray(body_force_sym_mxu_ensemble(pos, tile=TILE,
-                                                interpret=INTERP,
-                                                coincident="masked"))
-    np.testing.assert_array_equal(fa, fm)
-    assert np.isfinite(fa).all()
-
-
-def test_validation():
-    ss, st = _systems()
-    with pytest.raises(ValueError, match=r"\(B, N, 3\)"):
-        body_force_sym_mxu_ensemble(ss[0].pos, interpret=INTERP)
-    cfg = SimConfig(n=N, backend="sym_mxu", interpret=True)
-    with pytest.raises(ValueError, match="batched"):
-        simulate_ensemble(cfg, ss[0])
-    with pytest.raises(ValueError, match="sym_mxu"):
-        simulate_ensemble(cfg.replace(backend="pallas"), st)
-    with pytest.raises(ValueError, match="cfg.n"):
-        simulate_ensemble(cfg.replace(n=N + 1), st)
-    with pytest.raises(ValueError, match="coincident"):
-        body_force_sym_mxu_ensemble(st.pos, interpret=INTERP,
-                                    coincident="no")
-
-
-@pytest.mark.parametrize("masses", [False, True])
-def test_fp32_force_bitwise_vs_standalone(masses):
-    from mini_nbody_tpu.ops.symmetric_force import (
-        body_force_symmetric, body_force_symmetric_ensemble)
-
-    ss, st = _systems(masses, key0=20)
-    m = st.mass if masses else None
-    f = np.asarray(body_force_symmetric_ensemble(st.pos, m, tile=TILE,
-                                                 interpret=INTERP))
-    for i in range(B):
-        ref = body_force_symmetric(
-            ss[i].pos, ss[i].mass if masses else None,
-            tile=TILE, chunk=C, interpret=INTERP)
-        np.testing.assert_array_equal(f[i], np.asarray(ref))
-
-
-def test_fp32_trajectory_bitwise_vs_per_system():
-    ss, st = _systems(masses=True, key0=30)
-    cfg = SimConfig(n=N, dt=1e-3, steps=4, backend="sym", sym_tile=TILE,
-                    use_masses=True, interpret=True, integrator="leapfrog")
-    out = simulate_ensemble(cfg, st)
-    for i in range(B):
-        ref = simulate(cfg.replace(sym_chunk=C, resident=False,
-                                   traversal="band"), ss[i])
-        np.testing.assert_array_equal(np.asarray(out.pos[i]),
-                                      np.asarray(ref.pos))
-
-
-class TestDifferentiableEnsemble:
-    """make_differentiable_ensemble_force: per-system backwards are exact
-    (the ensemble VJP is block-diagonal), gradients match the analytic
-    per-system jnp VJP, and there is zero cross-system leakage."""
-
-    def _grad(self, backend, masses):
-        from mini_nbody_tpu.ops.autodiff import (
-            make_differentiable_ensemble_force)
-
-        ss, st = _systems(masses, key0=40)
-        cfg = SimConfig(n=N, backend=backend, sym_tile=TILE,
-                        sym_bwd_tile=TILE, use_masses=masses,
-                        interpret=INTERP, softening=1e-2)
-        force = make_differentiable_ensemble_force(cfg)
-
-        def loss(p):
-            f = force(p, st.mass if masses else None)
-            return jnp.sum(jnp.sin(f))
-
-        return ss, st, np.asarray(jax.grad(loss)(st.pos)), cfg
-
-    @pytest.mark.parametrize("backend", ["sym", "sym_mxu"])
-    def test_matches_per_system_jnp_vjp(self, backend):
-        from mini_nbody_tpu.ops.autodiff import _vjp_pos
-        from mini_nbody_tpu.ops.reference import body_force_jnp
-
-        masses = True
-        ss, st, g, cfg = self._grad(backend, masses)
-        # sym's backward is fp32-exact class everywhere; sym_mxu's is the
-        # bf16-operand MXU-hybrid backward, so on the real chip it gets the
-        # bf16-class tolerances (same split as tests/test_vjp_mxu.py:19).
-        rtol, atol_scale = ((1e-3, 1e-4) if INTERP or backend == "sym"
-                            else (2e-2, 5e-3))
-        for i in range(B):
-            def loss_i(p):
-                f = body_force_jnp(p, p, ss[i].mass, softening=1e-2)
-                return jnp.sum(jnp.sin(f))
-
-            ref = np.asarray(jax.grad(loss_i)(ss[i].pos))
-            scale = max(np.abs(ref).max(), 1.0)
-            np.testing.assert_allclose(g[i], ref, rtol=rtol,
-                                       atol=atol_scale * scale)
-
-    def test_no_cross_system_leakage(self):
-        from mini_nbody_tpu.ops.autodiff import (
-            make_differentiable_ensemble_force)
-
-        ss, st = _systems(True, key0=50)
-        cfg = SimConfig(n=N, backend="sym_mxu", sym_tile=TILE,
-                        use_masses=True, interpret=True, softening=1e-2)
-        force = make_differentiable_ensemble_force(cfg)
-
-        def loss_system0(p):
-            return jnp.sum(force(p, st.mass)[0] ** 2)
-
-        g = np.asarray(jax.grad(loss_system0)(st.pos))
-        assert np.abs(g[0]).max() > 0
-        np.testing.assert_array_equal(g[1:], np.zeros_like(g[1:]))
-
-    def test_backend_validation(self):
-        from mini_nbody_tpu.ops.autodiff import (
-            make_differentiable_ensemble_force)
-
-        with pytest.raises(ValueError, match="sym_mxu"):
-            make_differentiable_ensemble_force(
-                SimConfig(n=N, backend="pallas", interpret=True))
-
-
-class TestBatchedEnsembleBackward:
-    """vjp_pos_sym_mxu_ensemble / vjp_pos_sym_ensemble: the leading-
-    system-axis backward grid kernels must be bitwise equal per system to
-    the standalone symmetric backwards with the same tile (same operands,
-    same traversal), across band-count parities.
-
-    On TPU the kernel body is a context-independent Mosaic binary, so the
-    contract holds under jit. Under interpret the kernel jaxpr is INLINED
-    into the surrounding jitted XLA program, whose FMA-contraction choices
-    inside the body (d2 / dot products / c) are context-dependent — the
-    (B, nb, nd)-grid program contracts differently from the (nb, nd) one
-    at some shapes, and even differently run-to-run at a FIXED shape (the
-    r4 full-CPU-suite flake: [128-128-True] exceeded a 1e-4 allclose in
-    one suite ordering, passed in every file-scope rerun — XLA:CPU's
-    choices are compilation-context-dependent). jax.disable_jit() removes
-    XLA from the body entirely (eager interpret eval), which restores the
-    bitwise contract deterministically, so interpret runs execute the
-    comparisons under it."""
-
-    def _run(self, fn, *args, **kwargs):
-        if INTERP:
-            with jax.disable_jit():
-                return fn(*args, **kwargs)
-        return fn(*args, **kwargs)
-
-    def _assert_match(self, got, want):
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-    def _batch(self, n=N, b=B, key0=100, masses=True):
-        ss = [init.plummer(jax.random.key(key0 + i), n) if masses
-              else init.uniform_random(jax.random.key(key0 + i), n)
-              for i in range(b)]
-        pos = jnp.stack([s.pos for s in ss])
-        g = jnp.stack([jnp.sin(7.0 * s.pos) for s in ss])  # smooth cotangent
-        mass = jnp.stack([s.mass for s in ss]) if masses else None
-        return pos, g, mass
-
-    @pytest.mark.parametrize("masses", [False, True])
-    @pytest.mark.parametrize("mxu", [False, True])
-    def test_bitwise_vs_standalone(self, mxu, masses):
-        from mini_nbody_tpu.ops.vjp_kernel import (
-            vjp_pos_sym, vjp_pos_sym_ensemble)
-        from mini_nbody_tpu.ops.vjp_mxu import (
-            vjp_pos_sym_mxu, vjp_pos_sym_mxu_ensemble)
-
-        ens = vjp_pos_sym_mxu_ensemble if mxu else vjp_pos_sym_ensemble
-        one = vjp_pos_sym_mxu if mxu else vjp_pos_sym
-        pos, g, mass = self._batch(masses=masses)
-        bars = np.asarray(self._run(ens, pos, g, mass, tile=TILE,
-                                    interpret=INTERP))
-        for i in range(B):
-            ref = self._run(one, pos[i], g[i],
-                            None if mass is None else mass[i],
-                            tile=TILE, interpret=INTERP)
-            self._assert_match(bars[i], ref)
-
-    @pytest.mark.parametrize("mxu", [False, True])
-    @pytest.mark.parametrize("n,tile", [(192, 64), (300, 64), (128, 128)])
-    def test_bitwise_band_parities(self, mxu, n, tile):
-        from mini_nbody_tpu.ops.vjp_kernel import (
-            vjp_pos_sym, vjp_pos_sym_ensemble)
-        from mini_nbody_tpu.ops.vjp_mxu import (
-            vjp_pos_sym_mxu, vjp_pos_sym_mxu_ensemble)
-
-        ens = vjp_pos_sym_mxu_ensemble if mxu else vjp_pos_sym_ensemble
-        one = vjp_pos_sym_mxu if mxu else vjp_pos_sym
-        pos, g, mass = self._batch(n=n, key0=110)
-        bars = np.asarray(self._run(ens, pos, g, mass, tile=tile,
-                                    interpret=INTERP))
-        for i in range(B):
-            ref = self._run(one, pos[i], g[i], mass[i], tile=tile,
-                            interpret=INTERP)
-            self._assert_match(bars[i], ref)
-
-    @pytest.mark.parametrize("mxu", [False, True])
-    def test_mass_grad_bitwise(self, mxu):
-        from mini_nbody_tpu.ops.vjp_kernel import (
-            vjp_pos_sym, vjp_pos_sym_ensemble)
-        from mini_nbody_tpu.ops.vjp_mxu import (
-            vjp_pos_sym_mxu, vjp_pos_sym_mxu_ensemble)
-
-        ens = vjp_pos_sym_mxu_ensemble if mxu else vjp_pos_sym_ensemble
-        one = vjp_pos_sym_mxu if mxu else vjp_pos_sym
-        pos, g, mass = self._batch(key0=120)
-        pbar, mbar = self._run(ens, pos, g, mass, tile=TILE, interpret=INTERP,
-                               mass_grad=True)
-        for i in range(B):
-            rp, rm = self._run(one, pos[i], g[i], mass[i], tile=TILE,
-                               interpret=INTERP, mass_grad=True)
-            self._assert_match(pbar[i], rp)
-            self._assert_match(mbar[i], rm)
-
-    def test_within_system_duplicate_routes_masked(self):
-        from mini_nbody_tpu.ops.vjp_mxu import vjp_pos_sym_mxu_ensemble
-
-        pos, g, mass = self._batch(key0=130)
-        pos = pos.at[1, 150].set(pos[1, 3])
-        ba = np.asarray(vjp_pos_sym_mxu_ensemble(
-            pos, g, mass, tile=TILE, interpret=INTERP, coincident="auto"))
-        bm = np.asarray(vjp_pos_sym_mxu_ensemble(
-            pos, g, mass, tile=TILE, interpret=INTERP, coincident="masked"))
-        np.testing.assert_array_equal(ba, bm)
-        assert np.isfinite(ba).all()
-
-    def test_validation(self):
-        from mini_nbody_tpu.ops.vjp_mxu import vjp_pos_sym_mxu_ensemble
-
-        pos, g, mass = self._batch(key0=140)
-        with pytest.raises(ValueError, match=r"\(B, N, 3\)"):
-            vjp_pos_sym_mxu_ensemble(pos[0], g[0], interpret=INTERP)
-        with pytest.raises(ValueError, match="mass"):
-            vjp_pos_sym_mxu_ensemble(pos, g, None, mass_grad=True,
-                                     interpret=INTERP)
-
-
-class TestResidentEnsemble:
-    """Batched-resident kernel (ops/resident_sym.py, grid (steps, B, ...)):
-    every system's fused trajectory must be bitwise equal to its
-    standalone simulate_resident_sym run, and simulate_ensemble's
-    resident route must match simulate's resident route per system."""
-
-    @pytest.mark.parametrize("mxu", [False, True])
-    @pytest.mark.parametrize("masses", [False, True])
-    def test_bitwise_vs_standalone(self, mxu, masses):
-        from mini_nbody_tpu.ops.resident_sym import (
-            simulate_resident_sym, simulate_resident_sym_ensemble)
-
-        ss, st = _systems(masses, key0=60)
-        m = st.mass if masses else None
-        p, v = simulate_resident_sym_ensemble(
-            st.pos, st.vel, m, steps=3, dt=1e-3, mxu=mxu, tile=TILE,
-            interpret=INTERP)
-        for i in range(B):
-            pi, vi = simulate_resident_sym(
-                ss[i].pos, ss[i].vel, ss[i].mass if masses else None,
-                steps=3, dt=1e-3, mxu=mxu, tile=TILE, interpret=INTERP)
-            np.testing.assert_array_equal(np.asarray(p[i]), np.asarray(pi))
-            np.testing.assert_array_equal(np.asarray(v[i]), np.asarray(vi))
-
-    @pytest.mark.parametrize("integrator", ["euler", "leapfrog"])
-    def test_simulate_ensemble_resident_route(self, integrator):
-        from mini_nbody_tpu.sim import _route_resident_ensemble
-
-        ss, st = _systems(True, key0=70)
-        cfg = SimConfig(n=N, dt=1e-3, steps=3, backend="sym_mxu",
-                        sym_tile=TILE, resident_tile=TILE, use_masses=True,
-                        interpret=True, integrator=integrator,
-                        resident=True)
-        assert _route_resident_ensemble(cfg, 3, B)
-        # disable_jit under interpret: the leapfrog END KICKS run streamed
-        # forces (ensemble vs standalone slot programs), whose XLA:CPU FMA
-        # contraction is compilation-context-dependent — the same flake
-        # class as test_force_bitwise_band_parities.
-        import contextlib
-
-        ctx = jax.disable_jit() if cfg.interpret else contextlib.nullcontext()
-        with ctx:
-            out = simulate_ensemble(cfg, st)
-            for i in range(B):
-                ref = simulate(cfg, ss[i])
-                np.testing.assert_array_equal(np.asarray(out.pos[i]),
-                                              np.asarray(ref.pos))
-                np.testing.assert_array_equal(np.asarray(out.vel[i]),
-                                              np.asarray(ref.vel))
-
-    def test_routing_rules(self):
-        from mini_nbody_tpu.sim import _route_resident_ensemble
-
-        base = SimConfig(n=N, steps=4, backend="sym_mxu", interpret=True,
-                         resident=True, resident_tile=TILE)
-        assert _route_resident_ensemble(base, 4, B)
-        # resident=True with a non-fusable integrator / fused_integrate is
-        # rejected by SimConfig itself; the auto route (resident=None)
-        # must refuse them (and stays off-TPU-off anyway). yoshida4 left
-        # this list in r4: the resident kernel now fuses its composition
-        # substeps (ops/resident_sym.y4_cycle), so on TPU the auto route
-        # MAY admit it.
-        for bad in (dict(backend="sym_mxu", integrator="rk4"),
-                    dict(backend="pallas", fused_integrate=True)):
-            cfg = SimConfig(n=N, steps=4, interpret=True, **bad)
-            assert not _route_resident_ensemble(cfg, 4, B)
-        # resident=False pins streamed
-        assert not _route_resident_ensemble(base.replace(resident=False),
-                                            4, B)
-        # VMEM admission: B systems of the largest resident N cannot fit
-        big = SimConfig(n=131072, steps=4, backend="sym_mxu",
-                        interpret=True, resident=True)
-        assert not _route_resident_ensemble(big, 4, 64)
-
-    def test_admission_raise(self):
-        from mini_nbody_tpu.ops.resident_sym import (
-            simulate_resident_sym_ensemble)
-
-        pos = jnp.zeros((64, 131072, 3), jnp.float32)
-        with pytest.raises(ValueError, match="VMEM|admissible"):
-            simulate_resident_sym_ensemble(
-                pos, pos, steps=2, dt=1e-3, mxu=True, interpret=True)
-
-
-class TestShardedEnsemble:
-    """mesh= shards the batch axis data-parallel with ZERO collectives;
-    results must be bitwise equal to the unsharded run."""
-
-    def _batched(self, b, masses=True):
-        make = init.plummer if masses else init.uniform_random
-        ss = [make(jax.random.key(80 + i), N) for i in range(b)]
-        return BodyState(pos=jnp.stack([s.pos for s in ss]),
-                         vel=jnp.stack([s.vel for s in ss]),
-                         mass=jnp.stack([s.mass for s in ss]))
-
-    @pytest.mark.parametrize("masses", [False, True])
-    def test_matches_unsharded_bitwise(self, masses):
-        from mini_nbody_tpu.parallel import make_mesh
-
-        if len(jax.devices()) < 8:
-            pytest.skip("needs 8 devices")
-        st = self._batched(8, masses)
-        cfg = SimConfig(n=N, dt=1e-3, steps=3, backend="sym_mxu",
-                        sym_tile=TILE, use_masses=masses, interpret=True,
-                        integrator="leapfrog")
-        ref = simulate_ensemble(cfg, st)
-        out = simulate_ensemble(cfg, st, mesh=make_mesh(8))
-        np.testing.assert_array_equal(np.asarray(out.pos),
-                                      np.asarray(ref.pos))
-        np.testing.assert_array_equal(np.asarray(out.vel),
-                                      np.asarray(ref.vel))
-
-    def test_batch_must_divide_mesh(self):
-        from mini_nbody_tpu.parallel import make_mesh
-
-        if len(jax.devices()) < 8:
-            pytest.skip("needs 8 devices")
-        st = self._batched(3)
-        cfg = SimConfig(n=N, backend="sym_mxu", sym_tile=TILE,
-                        use_masses=True, interpret=True)
-        with pytest.raises(ValueError, match="divide"):
-            simulate_ensemble(cfg, st, mesh=make_mesh(8))
-
-
-def test_ensemble_watchdog_segmentation_matches(monkeypatch):
-    # Forcing tiny dispatch segments must not change the trajectory
-    # (host-segmented loop reuses the same compiled scan).
-    from mini_nbody_tpu import sim as simmod
-
-    ss = [init.uniform_random(jax.random.key(90 + i), N) for i in range(2)]
-    st = BodyState(pos=jnp.stack([s.pos for s in ss]),
-                   vel=jnp.stack([s.vel for s in ss]),
-                   mass=jnp.stack([s.mass for s in ss]))
-    cfg = SimConfig(n=N, dt=1e-3, steps=7, backend="sym_mxu",
-                    sym_tile=TILE, interpret=True, integrator="leapfrog")
-    ref = simmod.simulate_ensemble(cfg, st)
-    # seg = 2: pairs/step = 2*C^2 at 100 G/s
-    monkeypatch.setattr(simmod, "MAX_DEVICE_SECONDS_PER_DISPATCH",
-                        2 * 2 * C * C / (simmod._CONSERVATIVE_GINTER_S * 1e9))
-    out = simmod.simulate_ensemble(cfg, st)
-    np.testing.assert_array_equal(np.asarray(out.pos), np.asarray(ref.pos))
-    np.testing.assert_array_equal(np.asarray(out.vel), np.asarray(ref.vel))
 
 
 class TestTrajectoryEnsemble:
@@ -517,70 +70,105 @@ class TestTrajectoryEnsemble:
     must be bitwise equal to the per-system trajectory() dumps."""
 
     def test_bitwise_vs_per_system(self):
-        from mini_nbody_tpu.sim import trajectory, trajectory_ensemble
-
         ss, st = _systems(masses=True, key0=40)
-        cfg = SimConfig(n=N, dt=1e-3, steps=6, backend="sym_mxu",
-                        sym_tile=TILE, use_masses=True, interpret=True,
-                        integrator="leapfrog")
-        out, hist = trajectory_ensemble(cfg, st, save_every=2)
-        assert hist.shape == (3, B, N, 3)
-        for i in range(B):
-            ref, rhist = trajectory(
-                cfg.replace(sym_chunk=C, resident=False),
-                ss[i], cfg.steps, save_every=2)
-            np.testing.assert_array_equal(np.asarray(hist[:, i]),
-                                          np.asarray(rhist))
-            np.testing.assert_array_equal(np.asarray(out.pos[i]),
-                                          np.asarray(ref.pos))
-        # the final snapshot IS the final state
-        np.testing.assert_array_equal(np.asarray(hist[-1]),
-                                      np.asarray(out.pos))
-
-    def test_segmentation_neutral(self, monkeypatch):
-        from mini_nbody_tpu import sim as simmod
-
-        ss, st = _systems(masses=False, key0=44)
-        cfg = SimConfig(n=N, dt=1e-3, steps=6, backend="sym_mxu",
-                        sym_tile=TILE, interpret=True, integrator="euler")
-        _, ref = simmod.trajectory_ensemble(cfg, st, save_every=2)
-        # force seg = 2 steps/dispatch (rounded to a save_every multiple)
-        monkeypatch.setattr(
-            simmod, "MAX_DEVICE_SECONDS_PER_DISPATCH",
-            2 * B * C * C / (simmod._CONSERVATIVE_GINTER_S * 1e9))
-        out, hist = simmod.trajectory_ensemble(cfg, st, save_every=2)
-        np.testing.assert_array_equal(np.asarray(hist), np.asarray(ref))
-        np.testing.assert_array_equal(np.asarray(hist[-1]),
-                                      np.asarray(out.pos))
+        for backend in ("jnp", "pallas"):
+            cfg = _cfg(backend, steps=6)
+            out, hist = trajectory_ensemble(cfg, st, save_every=2)
+            assert hist.shape == (3, B, N, 3)
+            for i in range(B):
+                ref, rhist = trajectory(cfg, ss[i], cfg.steps, save_every=2)
+                np.testing.assert_array_equal(np.asarray(hist[:, i]),
+                                              np.asarray(rhist))
+                np.testing.assert_array_equal(np.asarray(out.pos[i]),
+                                              np.asarray(ref.pos))
+            # the final snapshot IS the final state
+            np.testing.assert_array_equal(np.asarray(hist[-1]),
+                                          np.asarray(out.pos))
 
     def test_divisibility_validation(self):
-        from mini_nbody_tpu.sim import trajectory_ensemble
-
         _, st = _systems()
-        cfg = SimConfig(n=N, steps=5, backend="sym_mxu", sym_tile=TILE,
-                        interpret=True)
         with pytest.raises(ValueError, match="divisible"):
-            trajectory_ensemble(cfg, st, save_every=2)
+            trajectory_ensemble(_cfg("jnp", steps=5), st, save_every=2)
 
     def test_sharded_matches_unsharded(self):
         from mini_nbody_tpu.parallel import make_mesh
-        from mini_nbody_tpu.sim import trajectory_ensemble
 
         if len(jax.devices()) < 8:
             pytest.skip("needs 8 devices")
-        ss = [init.plummer(jax.random.key(60 + i), N) for i in range(8)]
-        st = BodyState(pos=jnp.stack([s.pos for s in ss]),
-                       vel=jnp.stack([s.vel for s in ss]),
-                       mass=jnp.stack([s.mass for s in ss]))
-        cfg = SimConfig(n=N, dt=1e-3, steps=4, backend="sym_mxu",
-                        sym_tile=TILE, use_masses=True, interpret=True,
-                        integrator="leapfrog")
+        _, st = _systems(masses=True, key0=60, b=8)
+        cfg = _cfg("pallas", steps=4)
         _, ref = trajectory_ensemble(cfg, st, save_every=2)
         out, hist = trajectory_ensemble(cfg, st, save_every=2,
                                         mesh=make_mesh(8))
         np.testing.assert_array_equal(np.asarray(hist), np.asarray(ref))
         np.testing.assert_array_equal(np.asarray(hist[-1]),
                                       np.asarray(out.pos))
+
+
+class TestDifferentiableEnsemble:
+    def test_no_cross_system_leakage(self):
+        from mini_nbody_tpu.ops.autodiff import (
+            make_differentiable_ensemble_force)
+
+        _, st = _systems(True, key0=50)
+        cfg = _cfg("pallas")
+        force = make_differentiable_ensemble_force(cfg)
+        g = np.asarray(jax.grad(
+            lambda p: jnp.sum(force(p, st.mass)[0] ** 2))(st.pos))
+        assert np.abs(g[0]).max() > 0
+        np.testing.assert_array_equal(g[1:], np.zeros_like(g[1:]))
+
+
+def test_systems_do_not_interact():
+    # Moving one system's bodies leaves every other system's trajectory
+    # bitwise unchanged: no cross-system pairs.
+    _, st = _systems(masses=True, key0=60)
+    cfg = _cfg("jnp")
+    ref = simulate_ensemble(cfg, st)
+    moved = BodyState(pos=st.pos.at[0].add(0.5), vel=st.vel, mass=st.mass)
+    out = simulate_ensemble(cfg, moved)
+    np.testing.assert_array_equal(np.asarray(out.pos[1:]),
+                                  np.asarray(ref.pos[1:]))
+    assert not np.array_equal(np.asarray(out.pos[0]), np.asarray(ref.pos[0]))
+
+
+def test_validation():
+    ss, st = _systems()
+    cfg = SimConfig(n=N, backend="jnp")
+    with pytest.raises(ValueError, match="batched"):
+        simulate_ensemble(cfg, ss[0])
+    with pytest.raises(ValueError, match="cfg.n"):
+        simulate_ensemble(cfg.replace(n=N + 1), st)
+
+
+class TestShardedEnsemble:
+    """mesh= shards the batch axis data-parallel with ZERO collectives;
+    results must equal the unsharded run."""
+
+    @pytest.mark.parametrize("masses", [False, True])
+    def test_matches_unsharded_bitwise(self, masses):
+        from mini_nbody_tpu.parallel import make_mesh
+
+        if len(jax.devices()) < 8:
+            pytest.skip("needs 8 devices")
+        _, st = _systems(masses, key0=80, b=8)
+        for backend in ("jnp", "pallas"):
+            cfg = _cfg(backend, masses=masses, steps=3)
+            ref = simulate_ensemble(cfg, st)
+            out = simulate_ensemble(cfg, st, mesh=make_mesh(8))
+            np.testing.assert_array_equal(np.asarray(out.pos),
+                                          np.asarray(ref.pos))
+            np.testing.assert_array_equal(np.asarray(out.vel),
+                                          np.asarray(ref.vel))
+
+    def test_batch_must_divide_mesh(self):
+        from mini_nbody_tpu.parallel import make_mesh
+
+        if len(jax.devices()) < 8:
+            pytest.skip("needs 8 devices")
+        _, st = _systems(b=3)
+        with pytest.raises(ValueError, match="divide"):
+            simulate_ensemble(_cfg("jnp"), st, mesh=make_mesh(8))
 
 
 def test_ensemble_diagnostics():

@@ -65,3 +65,48 @@ def test_newton_third_law(rng):
     f = np.asarray(body_force_jnp(pos, pos))
     scale = np.abs(f).sum()
     assert np.abs(f.sum(0)).max() < 1e-5 * scale
+
+
+@pytest.mark.parametrize("n,chunk", [(130, 64), (300, 128), (4099, 1024)])
+def test_row_chunking_ragged(n, chunk, rng):
+    # Ragged N: the last row chunk is padded, never the whole (N, N) block.
+    pos = jnp.asarray(rng.uniform(-1, 1, (n, 3)), jnp.float32)
+    m = jnp.asarray(rng.uniform(0.5, 2.0, n), jnp.float32)
+    full = np.asarray(body_force_jnp(pos, pos, m))
+    chunked = np.asarray(body_force_jnp(pos, pos, m, row_chunk=chunk))
+    assert chunked.shape == (n, 3)
+    scale = np.abs(full).max()
+    np.testing.assert_allclose(chunked, full, rtol=1e-5, atol=1e-6 * scale)
+
+
+@pytest.mark.parametrize("n", [8193, 9001, 12288])
+def test_dispatch_chunks_large_ragged_n(n):
+    # Above 2^24 pairs the dispatcher chunks rows at any N, ragged or not:
+    # no (N, N) block may appear in the traced program.
+    from mini_nbody_tpu.ops.force import body_force
+
+    pos = jax.ShapeDtypeStruct((n, 3), jnp.float32)
+    jaxpr = str(jax.make_jaxpr(lambda p: body_force(p, p))(pos))
+    assert "while" in jaxpr or "scan" in jaxpr
+    assert f"{n},{n}" not in jaxpr.replace(" ", "")
+
+
+@pytest.mark.parametrize("row_chunk", [None, 16])
+@pytest.mark.parametrize("masses", [False, True])
+def test_pair_function_both_directions(masses, row_chunk, rng):
+    # One weight block gives the rows and, negated, the reactions
+    # (comm='ring_sym'): each side equals the plain rectangular force.
+    from mini_nbody_tpu.ops.reference import body_force_pair_jnp
+
+    pa = jnp.asarray(rng.uniform(-1, 1, (45, 3)), jnp.float32)
+    pb = jnp.asarray(rng.uniform(-1, 1, (70, 3)), jnp.float32)
+    ma = jnp.asarray(rng.uniform(0.5, 2, 45), jnp.float32) if masses else None
+    mb = jnp.asarray(rng.uniform(0.5, 2, 70), jnp.float32) if masses else None
+    fa, fb = body_force_pair_jnp(pa, pb, ma, mb, softening=1e-2,
+                                 row_chunk=row_chunk)
+    ra = body_force_jnp(pa, pb, mb, softening=1e-2)
+    rb = body_force_jnp(pb, pa, ma, softening=1e-2)
+    for got, ref in ((fa, ra), (fb, rb)):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(np.asarray(got), ref, rtol=1e-5,
+                                   atol=1e-6 * np.abs(ref).max())

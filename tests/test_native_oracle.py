@@ -56,7 +56,7 @@ def test_large_n_speed():
     assert dt < 30.0
 
 
-def test_trajectory_vs_tpu_engine():
+def test_trajectory_vs_engine():
     # Config-1 fidelity: the engine's Euler trajectory must track the native
     # fp64-force oracle trajectory (identical v-then-x semantics).
     import jax

@@ -13,7 +13,7 @@ from mini_nbody_tpu.parallel.sharded import init_sharded_carry, make_sharded_ste
 @pytest.fixture(scope="module")
 def mesh():
     if len(jax.devices()) < 8:
-        pytest.skip("needs 8 devices (virtual CPU mesh; real-TPU runs skip)")
+        pytest.skip("needs 8 devices (the virtual CPU mesh)")
     return make_mesh(8)
 
 
@@ -39,7 +39,7 @@ def test_sharded_pallas_interpret(mesh, comm):
     n = 256
     state = init.uniform_random(jax.random.key(1), n)
     cfg = SimConfig(n=n, steps=2, backend="pallas", comm=comm,
-                    tile_i=32, tile_j=128)
+                    tile_i=32, tile_j=64, interpret=True)
     ref = simulate(cfg.replace(backend="jnp"), state)
     out = simulate_sharded(cfg, mesh, state)
     scale = np.abs(np.asarray(ref.pos)).max()
@@ -88,12 +88,12 @@ def test_output_stays_sharded(mesh):
 
 
 def test_ring_symmetric_self_hop(mesh):
-    # Unit-mass ring path upgrades hop 0 to the symmetric kernel; results
+    # Unit-mass ring on the Pallas kernel (self hop and cross hops); results
     # must match the plain path.
     n = 512
     state = init.uniform_random(jax.random.key(7), n)
     cfg = SimConfig(n=n, steps=3, backend="pallas", comm="ring",
-                    tile_i=32, tile_j=128)
+                    tile_i=32, tile_j=64, interpret=True)
     ref = simulate(cfg.replace(backend="jnp"), state)
     out = simulate_sharded(cfg, mesh, state)
     scale = np.abs(np.asarray(ref.pos)).max()
@@ -123,7 +123,7 @@ def test_ring_sym_matches_single_chip(p):
 @pytest.mark.parametrize("p", [8, 5])
 def test_ring_sym_mass_mode(p):
     # Mass-mode half-ring: masses ride with the traveling packet; rows use
-    # the packet's m, reactions the resident shard's m (VERDICT r1 item 2).
+    # the packet's m, reactions the resident shard's m.
     if len(jax.devices()) < p:
         pytest.skip("needs devices")
     m = make_mesh(p)
@@ -140,12 +140,13 @@ def test_ring_sym_mass_mode(p):
 
 
 def test_ring_mass_symmetric_self_hop(mesh):
-    # Mass configs on the plain ring now also upgrade hop 0 to the symmetric
-    # kernel; results must match the jnp path.
+    # Mass configs on the ring with the Pallas kernel; results must match
+    # the jnp path.
     n = 512
     state = init.plummer(jax.random.key(17), n)
     cfg = SimConfig(n=n, dt=1e-3, steps=3, backend="pallas", comm="ring",
-                    softening=1e-2, use_masses=True, tile_i=32, tile_j=128)
+                    softening=1e-2, use_masses=True, tile_i=32, tile_j=64,
+                    interpret=True)
     ref = simulate(cfg.replace(backend="jnp"), state)
     out = simulate_sharded(cfg, mesh, state)
     scale = np.abs(np.asarray(ref.pos)).max()
@@ -158,8 +159,8 @@ def test_ring_mass_symmetric_self_hop(mesh):
 @pytest.mark.parametrize("use_masses", [False, True])
 def test_differentiable_sharded_step(mesh, comm, use_masses):
     # jax.grad through a 5-step mesh-sharded trajectory must match the
-    # single-chip differentiable step (VERDICT r1 item 7). Backward runs the
-    # rectangular Pallas VJP kernel per gather/ring-hop.
+    # single-device differentiable step. Backward runs the pairwise VJP per
+    # gather/ring-hop.
     import jax.numpy as jnp
     from mini_nbody_tpu.models.state import BodyState
     from mini_nbody_tpu.parallel.sharded import _state_specs
@@ -226,7 +227,7 @@ def test_grid_2d_pallas_and_padding():
     n = 300  # not divisible by 8: padding path
     state = init.uniform_random(jax.random.key(52), n)
     cfg = SimConfig(n=n, steps=3, backend="pallas", comm="grid",
-                    mesh_shape=(2, 4), tile_i=32, tile_j=128)
+                    mesh_shape=(2, 4), tile_i=32, tile_j=64, interpret=True)
     ref = simulate(cfg.replace(mesh_shape=None, comm="all_gather",
                                backend="jnp"), state)
     out = simulate_sharded(cfg, m, state)
@@ -281,44 +282,9 @@ def test_grid_2d_differentiable():
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5 * scale)
 
 
-@pytest.mark.parametrize("p", [8, 5])
-@pytest.mark.parametrize("use_masses", [False, True])
-def test_ring_sym_mxu_backend(p, use_masses):
-    # backend='sym_mxu' under comm='ring_sym': the half-ring exchange runs
-    # the symmetric x MXU hybrid per shard pair (body_force_pair_mxu for
-    # cross hops, body_force_sym_mxu for the self hop). Interpret mode is
-    # exact fp32, so the sharded trajectory must match the jnp single-chip
-    # one to fp32 tolerances.
-    if len(jax.devices()) < p:
-        pytest.skip("needs devices")
-    m = make_mesh(p)
-    n = 520
-    mk = init.plummer if use_masses else init.uniform_random
-    state = mk(jax.random.key(17), n)
-    cfg = SimConfig(n=n, dt=1e-3, steps=4, backend="sym_mxu",
-                    comm="ring_sym", softening=1e-2, use_masses=use_masses)
-    ref = simulate(cfg.replace(comm="ring", backend="jnp",
-                               mesh_shape=None), state)
-    out = simulate_sharded(cfg, m, state)
-    scale = np.abs(np.asarray(ref.pos)).max()
-    np.testing.assert_allclose(
-        np.asarray(out.pos), np.asarray(ref.pos), rtol=1e-3, atol=1e-4 * scale
-    )
-
-
-def test_sym_backend_shards_under_every_comm():
-    # The old restriction (sym backends only under comm='ring_sym' on a
-    # mesh) is lifted: rectangular comms route cross-shard work to the
-    # same-precision-class streaming kernel (parallel/sharded.py), so these
-    # configs are all valid now.
-    SimConfig(n=96, backend="sym_mxu", mesh_shape=(8,), comm="ring")
-    SimConfig(n=96, backend="sym_mxu", mesh_shape=(8,), comm="ring_sym")
-    SimConfig(n=96, backend="sym", mesh_shape=(8,), comm="all_gather")
-
-
 def test_two_process_distributed_cpu():
     """REAL multi-process jax.distributed on localhost (config 5's
-    multi-host axis, as far as a single-host env allows): coordinator
+    multi-host axis, as far as one host allows): coordinator
     handshake, gloo CPU collectives, a ring_sym trajectory whose every
     ppermute hop crosses the process boundary, gathered and checked against
     a single-device run inside each worker (examples/multihost_cpu.py)."""
@@ -333,120 +299,6 @@ def test_two_process_distributed_cpu():
     )
     assert res.returncode == 0, res.stdout + res.stderr
     assert "multihost OK: 2 processes" in res.stdout
-
-
-@pytest.mark.parametrize("use_masses", [False, True])
-def test_differentiable_sharded_sym_mxu_backend(mesh, use_masses):
-    # bf16-class forward (sym_mxu) routes the sharded backward through the
-    # MXU rect kernel (vjp_rect_mxu); on the CPU mesh interpret mode is
-    # exact fp32, so the grad must match the single-chip differentiable
-    # step to fp32 tolerance.
-    import jax.numpy as jnp
-    from mini_nbody_tpu.models.state import BodyState
-    from mini_nbody_tpu.parallel.sharded import _state_specs
-    from mini_nbody_tpu.sim import make_step_fn
-
-    n = 256
-    s = (init.plummer if use_masses else init.uniform_random)(
-        jax.random.key(37), n)
-    cfg = SimConfig(n=n, dt=1e-3, steps=3, backend="sym_mxu", comm="ring",
-                    softening=1e-2, use_masses=use_masses,
-                    tile_i=32, tile_j=128)
-
-    step1 = make_step_fn(cfg, differentiable=True)
-
-    def loss_single(pos0):
-        carry = (BodyState(pos=pos0, vel=s.vel, mass=s.mass),
-                 jnp.zeros_like(pos0))
-        for _ in range(3):
-            carry = step1(carry)
-        return jnp.sum(carry[0].pos ** 2)
-
-    ref = np.asarray(jax.grad(loss_single)(s.pos))
-
-    stepP = make_sharded_step_fn(cfg, mesh, differentiable=True)
-    specs = _state_specs(mesh)
-
-    def loss_sharded(pos0):
-        state = BodyState(pos=pos0, vel=s.vel, mass=s.mass)
-        state = jax.tree_util.tree_map(
-            lambda x, sp: jax.lax.with_sharding_constraint(
-                x, jax.sharding.NamedSharding(mesh, sp)), state, specs)
-        carry = (state, jnp.zeros_like(pos0))
-        for _ in range(3):
-            carry = stepP(carry)
-        return jnp.sum(carry[0].pos ** 2)
-
-    out = np.asarray(jax.grad(loss_sharded)(s.pos))
-    scale = max(np.abs(ref).max(), 1e-30)
-    np.testing.assert_allclose(out, ref, rtol=1e-3, atol=1e-4 * scale)
-
-
-@pytest.mark.parametrize("backend", ["sym", "sym_mxu"])
-def test_square_only_backends_route_rect_comms(mesh, backend):
-    # all_gather/ring exchanges make rectangular force calls, which the
-    # symmetric kernels reject; _make_local_force must route cross-shard
-    # work to the same-precision-class streaming kernel (sym -> pallas,
-    # sym_mxu -> mxu) instead of crashing.
-    n = 256
-    s = init.plummer(jax.random.key(41), n)
-    cfg = SimConfig(n=n, dt=1e-3, steps=2, backend=backend,
-                    comm="all_gather", softening=1e-2, use_masses=True)
-    ref = simulate(cfg, s)
-    out = simulate_sharded(cfg, mesh, s)
-    scale = np.abs(np.asarray(ref.pos)).max()
-    np.testing.assert_allclose(
-        np.asarray(out.pos), np.asarray(ref.pos), rtol=1e-3,
-        atol=1e-4 * scale)
-
-
-def test_grid_2d_differentiable_sym_mxu():
-    # Grid comm with the bf16-class backend: forward routes cross-shard
-    # work through the mxu streaming kernel, backward gathers along both
-    # axes and runs the MXU rect VJP kernel. Interpret mode on the CPU
-    # mesh is exact fp32 -> must match the single-chip grad.
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 devices")
-    import jax.numpy as jnp
-    from mini_nbody_tpu.models.state import BodyState
-    from mini_nbody_tpu.parallel.sharded import _state_specs
-    from mini_nbody_tpu.sim import make_step_fn
-
-    m = make_mesh((2, 4))
-    n = 256
-    s = init.plummer(jax.random.key(59), n)
-    cfg = SimConfig(n=n, dt=1e-3, steps=2, backend="sym_mxu", comm="grid",
-                    softening=1e-2, use_masses=True, mesh_shape=(2, 4),
-                    tile_i=32, tile_j=128)
-
-    step1 = make_step_fn(cfg.replace(mesh_shape=None, comm="all_gather"),
-                         differentiable=True)
-
-    def loss_single(pos0):
-        carry = (BodyState(pos=pos0, vel=s.vel, mass=s.mass),
-                 jnp.zeros_like(pos0))
-        for _ in range(2):
-            carry = step1(carry)
-        return jnp.sum(carry[0].pos ** 2)
-
-    ref = np.asarray(jax.grad(loss_single)(s.pos))
-
-    stepP = make_sharded_step_fn(cfg, m, differentiable=True)
-    specs = _state_specs(m)
-
-    def loss_sharded(pos0):
-        state = BodyState(pos=pos0, vel=s.vel, mass=s.mass)
-        state = jax.tree_util.tree_map(
-            lambda x, sp: jax.lax.with_sharding_constraint(
-                x, jax.sharding.NamedSharding(m, sp)), state, specs)
-        carry = (state, jnp.zeros_like(pos0))
-        for _ in range(2):
-            carry = stepP(carry)
-        return jnp.sum(carry[0].pos ** 2)
-
-    out = np.asarray(jax.grad(loss_sharded)(s.pos))
-    scale = max(np.abs(ref).max(), 1e-30)
-    np.testing.assert_allclose(out, ref, rtol=1e-3, atol=1e-4 * scale)
 
 
 @pytest.mark.parametrize("shape", [(2, 3), (3, 2)])
@@ -496,8 +348,8 @@ def test_grid_2d_non_pow2_mesh(shape):
 
 @pytest.mark.parametrize("comm", ["all_gather", "ring_sym"])
 def test_trajectory_sharded_matches_single_chip(comm):
-    # Sharded snapshot collection (round-2 verdict weak item 7): history
-    # and final state must match sim.trajectory on one device.
+    # Sharded snapshot collection: history and final state must match
+    # sim.trajectory on one device.
     from mini_nbody_tpu.parallel.sharded import trajectory_sharded
     from mini_nbody_tpu.sim import trajectory
 

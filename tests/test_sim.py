@@ -95,8 +95,8 @@ def test_step_fn_is_jittable_and_pure():
 
 def test_energy_drift_gate_leapfrog():
     # BASELINE.json gate: energy drift <= 1e-5 over 1k steps. CI-scaled
-    # version (512 bodies, 200 steps); measured on real TPU at N=16384/1k
-    # steps: 9.3e-9 (fp32 direct) and 1.6e-7 (mxu bf16), both well inside.
+    # version (512 bodies, 200 steps); chip_smoke.py phase (c) runs the
+    # full config-3 gate on the card.
     state = init.plummer(jax.random.key(21), 512)
     soft = 1e-2
     cfg = SimConfig(n=512, dt=1e-3, steps=200, integrator="leapfrog",
@@ -105,81 +105,6 @@ def test_energy_drift_gate_leapfrog():
     out = simulate(cfg, state)
     e1 = float(diag.total_energy(out, soft))
     assert abs(e1 - e0) / abs(e0) < 1e-5
-
-
-def test_watchdog_segmentation_matches_single_program(monkeypatch):
-    # Forcing a tiny per-dispatch cap must not change the trajectory: the
-    # host-segmented path reuses the same compiled scan with the carry on
-    # device (VERDICT r1 item 5 — automatic watchdog-safe segmentation).
-    import numpy as np
-    from mini_nbody_tpu import sim as simmod
-    from mini_nbody_tpu.models import init as minit
-    from mini_nbody_tpu.utils.config import SimConfig
-
-    cfg = SimConfig(n=96, dt=1e-3, steps=13, backend="jnp", softening=1e-2)
-    state = minit.uniform_random(jax.random.key(21), 96)
-    ref = simmod.simulate(cfg, state)
-    # cap -> max_steps_per_dispatch == 1ish: 13 = 4*3 + 1 segments at seg=3
-    monkeypatch.setattr(simmod, "MAX_DEVICE_SECONDS_PER_DISPATCH",
-                        3 * 96 * 96 / (simmod._CONSERVATIVE_GINTER_S * 1e9))
-    assert simmod.max_steps_per_dispatch(96) == 3
-    out = simmod.simulate(cfg, state)
-    np.testing.assert_array_equal(np.asarray(out.pos), np.asarray(ref.pos))
-    np.testing.assert_array_equal(np.asarray(out.vel), np.asarray(ref.vel))
-
-
-def test_max_steps_per_dispatch_scales():
-    from mini_nbody_tpu.sim import max_steps_per_dispatch
-
-    assert max_steps_per_dispatch(1 << 20) >= 10   # ~11 at 100 G/s, 120 s
-    assert max_steps_per_dispatch(1 << 20) < 1000
-    assert max_steps_per_dispatch(1024) > 100000   # small N: effectively off
-    # sharded: per-device work is N^2/P (≈8x more steps fit; int truncation)
-    single = max_steps_per_dispatch(1 << 20)
-    assert 8 * single <= max_steps_per_dispatch(1 << 20, n_devices=8) \
-        <= 8 * (single + 1)
-
-
-def test_trajectory_segmentation_matches_single_program(monkeypatch):
-    import numpy as np
-    from mini_nbody_tpu import sim as simmod
-    from mini_nbody_tpu.models import init as minit
-    from mini_nbody_tpu.utils.config import SimConfig
-
-    cfg = SimConfig(n=64, dt=1e-3, steps=12, backend="jnp", softening=1e-2)
-    state = minit.uniform_random(jax.random.key(23), 64)
-    ref_final, ref_hist = simmod.trajectory(cfg, state, steps=12, save_every=2)
-    monkeypatch.setattr(simmod, "MAX_DEVICE_SECONDS_PER_DISPATCH",
-                        4 * 64 * 64 / (simmod._CONSERVATIVE_GINTER_S * 1e9))
-    out_final, out_hist = simmod.trajectory(cfg, state, steps=12, save_every=2)
-    assert out_hist.shape == ref_hist.shape == (6, 64, 3)
-    np.testing.assert_array_equal(np.asarray(out_hist), np.asarray(ref_hist))
-    np.testing.assert_array_equal(np.asarray(out_final.pos),
-                                  np.asarray(ref_final.pos))
-
-
-def test_hostseg_simulate_matches_sym(monkeypatch):
-    # When one force pass would exceed the watchdog, simulate steps from the
-    # host with the segmented symmetric force — results must match the
-    # normal sym path (the segmented force is bit-identical; integrate ops
-    # may fuse differently, hence allclose).
-    import numpy as np
-    from mini_nbody_tpu import sim as simmod
-    from mini_nbody_tpu.models import init as minit
-    from mini_nbody_tpu.utils.config import SimConfig
-
-    cfg = SimConfig(n=96, dt=1e-3, steps=4, backend="sym", softening=1e-2,
-                    integrator="leapfrog", use_masses=True)
-    state = minit.plummer(jax.random.key(29), 96)
-    ref = simmod.simulate(cfg, state)
-    monkeypatch.setattr(simmod, "MAX_DEVICE_SECONDS_PER_DISPATCH",
-                        0.5 * 96 * 96 / (simmod._CONSERVATIVE_GINTER_S * 1e9))
-    out = simmod.simulate(cfg, state)
-    scale = float(np.abs(np.asarray(ref.pos)).max())
-    np.testing.assert_allclose(np.asarray(out.pos), np.asarray(ref.pos),
-                               rtol=1e-6, atol=1e-7 * scale)
-    np.testing.assert_allclose(np.asarray(out.vel), np.asarray(ref.vel),
-                               rtol=1e-6, atol=1e-6 * scale)
 
 
 class TestRolloutRemat:
@@ -325,15 +250,6 @@ class TestRK4:
         g = jax.grad(loss)(s.pos)
         assert np.isfinite(np.asarray(g)).all()
 
-    def test_resident_refuses_rk4(self):
-        import pytest
-
-        from mini_nbody_tpu import SimConfig
-
-        with pytest.raises(ValueError, match="resident"):
-            SimConfig(n=64, resident=True, integrator="rk4")
-
-
 class TestYoshida4:
     """4th-order symplectic Yoshida integrator (ops/integrators.py)."""
 
@@ -422,44 +338,86 @@ class TestYoshida4:
                                    np.asarray(ref.pos),
                                    rtol=1e-4, atol=1e-5 * scale)
 
-    def test_resident_yoshida4_matches_streamed(self):
-        # resident=True now fuses yoshida4 (r4): the routed trajectory
-        # must match the streamed one (same composition arithmetic; the
-        # force kernels differ only at the fused-vs-streamed level).
-        import numpy as np
 
-        from mini_nbody_tpu import SimConfig, simulate
-        from mini_nbody_tpu.models import init
-
-        n = 192
-        s = init.plummer(jax.random.key(21), n)
-        base = SimConfig(n=n, dt=1e-3, steps=4, softening=1e-2,
-                         backend="sym", use_masses=True,
-                         integrator="yoshida4", interpret=True)
-        ref = simulate(base.replace(resident=False), s)
-        out = simulate(base.replace(resident=True, resident_tile=64), s)
-        scale = np.abs(np.asarray(ref.pos)).max()
-        np.testing.assert_allclose(np.asarray(out.pos),
-                                   np.asarray(ref.pos),
-                                   rtol=1e-5, atol=1e-6 * scale)
-        np.testing.assert_allclose(np.asarray(out.vel),
-                                   np.asarray(ref.vel),
-                                   rtol=1e-4, atol=1e-5)
-
-    def test_resident_refuses_rk4(self):
-        from mini_nbody_tpu import SimConfig
-
-        with pytest.raises(ValueError, match="resident"):
-            SimConfig(n=64, resident=True, integrator="rk4")
+def _np_accel(x, m, soft):
+    d = x[None, :, :] - x[:, None, :]
+    r2 = (d * d).sum(-1) + soft
+    return (d * ((r2 ** -1.5) * m[None, :])[:, :, None]).sum(1)
 
 
-def test_pacing_scales_with_force_evals():
-    # yoshida4 runs 3 force passes per step, rk4 four: the watchdog
-    # segment must shrink accordingly (code-review r3d).
-    from mini_nbody_tpu.sim import max_steps_per_dispatch
+def _np_integrate(integrator, x, v, m, dt, steps, soft):
+    """fp64 NumPy twins of the four integrators (ops/integrators.py)."""
+    from mini_nbody_tpu.ops.integrators import _Y4_W0, _Y4_W1
 
-    n = 1 << 20
-    e = max_steps_per_dispatch(n, cfg=SimConfig(n=n, integrator="euler"))
-    y = max_steps_per_dispatch(n, cfg=SimConfig(n=n, integrator="yoshida4"))
-    r = max_steps_per_dispatch(n, cfg=SimConfig(n=n, integrator="rk4"))
-    assert y <= -(-e // 3) and r <= -(-e // 4)
+    def kdk(x, v, a, h):
+        vh = v + 0.5 * h * a
+        x = x + h * vh
+        a = _np_accel(x, m, soft)
+        return x, vh + 0.5 * h * a, a
+
+    a = _np_accel(x, m, soft)
+    for _ in range(steps):
+        if integrator == "euler":
+            v = v + dt * _np_accel(x, m, soft)
+            x = x + dt * v
+        elif integrator == "leapfrog":
+            x, v, a = kdk(x, v, a, dt)
+        elif integrator == "yoshida4":
+            for w in (_Y4_W1, _Y4_W0, _Y4_W1):
+                x, v, a = kdk(x, v, a, w * dt)
+        else:
+            k1v, k1x = _np_accel(x, m, soft), v
+            k2v = _np_accel(x + 0.5 * dt * k1x, m, soft)
+            k2x = v + 0.5 * dt * k1v
+            k3v = _np_accel(x + 0.5 * dt * k2x, m, soft)
+            k3x = v + 0.5 * dt * k2v
+            k4v = _np_accel(x + dt * k3x, m, soft)
+            k4x = v + dt * k3v
+            x = x + dt / 6 * (k1x + 2 * k2x + 2 * k3x + k4x)
+            v = v + dt / 6 * (k1v + 2 * k2v + 2 * k3v + k4v)
+    return x, v
+
+
+@pytest.mark.parametrize("backend", ["jnp", "pallas"])
+@pytest.mark.parametrize("use_masses", [False, True])
+@pytest.mark.parametrize("integrator", ["euler", "leapfrog", "rk4",
+                                        "yoshida4"])
+def test_simulate_matches_fp64_numpy(integrator, use_masses, backend):
+    """simulate() against an fp64 NumPy run of the same integrator, for
+    both force paths, unit and Plummer masses (ragged N=75)."""
+    n, dt, steps, soft = 75, 1e-3, 6, 1e-2
+    s = init.plummer(jax.random.key(31), n)
+    m = np.asarray(s.mass, np.float64) if use_masses else np.ones(n)
+    cfg = SimConfig(n=n, dt=dt, steps=steps, softening=soft,
+                    integrator=integrator, backend=backend, interpret=True,
+                    use_masses=use_masses)
+    out = simulate(cfg, s)
+    x, v = _np_integrate(integrator, np.asarray(s.pos, np.float64),
+                         np.asarray(s.vel, np.float64), m, dt, steps, soft)
+    np.testing.assert_allclose(np.asarray(out.pos), x, rtol=1e-5,
+                               atol=1e-6 * np.abs(x).max())
+    np.testing.assert_allclose(np.asarray(out.vel), v, rtol=1e-4,
+                               atol=1e-5 * np.abs(v).max())
+
+
+@pytest.mark.parametrize("backend", ["jnp", "pallas"])
+@pytest.mark.parametrize("integrator", ["euler", "leapfrog"])
+def test_trajectory_matches_simulate(integrator, backend):
+    s = init.plummer(jax.random.key(32), 40)
+    cfg = SimConfig(n=40, dt=1e-3, steps=6, softening=1e-2,
+                    integrator=integrator, backend=backend, interpret=True,
+                    use_masses=True)
+    final, hist = trajectory(cfg, s, steps=6, save_every=3)
+    assert hist.shape == (2, 40, 3)
+    ref = simulate(cfg, s)
+    np.testing.assert_array_equal(np.asarray(final.pos), np.asarray(ref.pos))
+    np.testing.assert_array_equal(np.asarray(hist[-1]), np.asarray(ref.pos))
+    mid = simulate(cfg, s, steps=3)
+    np.testing.assert_allclose(np.asarray(hist[0]), np.asarray(mid.pos),
+                               rtol=1e-6, atol=1e-7)
+
+
+def test_trajectory_divisibility():
+    s = init.uniform_random(jax.random.key(0), 16)
+    with pytest.raises(ValueError, match="divisible"):
+        trajectory(SimConfig(n=16, backend="jnp"), s, steps=5, save_every=2)
